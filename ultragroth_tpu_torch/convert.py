@@ -1,0 +1,71 @@
+"""Carry state between the JAX package's layout and the port's.
+
+The JAX package holds field elements as 16 limbs of 16 bits in u32 planes
+[16, *batch]; the port as 8 limbs of 32 bits, [8, *batch] (`ops/limbs.py`).
+Both are plain bit shuffles of the same integers.  `prover_state_from_jax`
+turns the JAX prover's numpy state (what its `g1_section_to_planes` /
+`g2_section_to_planes` give, plus the coefficient arrays) into the tensors
+`TorchGroth16Prover` keeps, so both packages can compute on one key.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.limbs import limb_dtype, narrow
+
+
+def planes16_to_planes8(p16) -> np.ndarray:
+    """[16, ...] u32 planes of 16-bit limbs -> [8, ...] of 32-bit limbs."""
+    p16 = np.asarray(p16, dtype=np.uint32)
+    return (p16[0::2] | (p16[1::2] << np.uint32(16))).astype(np.uint32)
+
+
+def planes8_to_planes16(p8) -> np.ndarray:
+    """[8, ...] u32 planes of 32-bit limbs -> [16, ...] of 16-bit limbs."""
+    p8 = np.asarray(p8, dtype=np.uint32)
+    out = np.empty((16,) + p8.shape[1:], dtype=np.uint32)
+    out[0::2] = p8 & np.uint32(0xFFFF)
+    out[1::2] = p8 >> np.uint32(16)
+    return out
+
+
+def to_torch(p16, device="cpu") -> torch.Tensor:
+    """JAX-layout planes [16, ...] -> port tensor [8, ...] on `device`."""
+    t = torch.from_numpy(planes16_to_planes8(p16).astype(np.int64)).to(device)
+    return narrow(t, limb_dtype(device))
+
+
+def from_torch(t: torch.Tensor) -> np.ndarray:
+    """Port tensor [8, ...] -> JAX-layout planes [16, ...] (numpy)."""
+    return planes8_to_planes16(t.cpu().numpy().astype(np.uint32))
+
+
+def g1_points_from_jax(x, y, inf, device="cpu"):
+    """JAX (x [16, N], y [16, N], inf [N]) -> port (table [2, 8, N], inf)."""
+    return (torch.stack([to_torch(x, device), to_torch(y, device)]),
+            torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
+
+
+def g2_points_from_jax(x, y, inf, device="cpu"):
+    """JAX ((x0, x1), (y0, y1), inf) -> port (table [2, 2, 8, N], inf)."""
+    pair = lambda c: torch.stack([to_torch(c[0], device),
+                                  to_torch(c[1], device)])
+    return (torch.stack([pair(x), pair(y)]),
+            torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
+
+
+def prover_state_from_jax(state: dict, device="cpu") -> dict:
+    """The JAX prover's state -> the port prover's tensors.
+
+    state: points_a, points_b1, points_c, points_h as (x, y, inf);
+    points_b2 as ((x0, x1), (y0, y1), inf); coef_val_mont [16, nCoefs];
+    coef_m, coef_c, coef_s int arrays (numpy or anything np.asarray takes).
+    Returns the same keys in the layout of `TorchGroth16Prover`."""
+    out = {k: g1_points_from_jax(*state[k], device=device)
+           for k in ("points_a", "points_b1", "points_c", "points_h")}
+    out["points_b2"] = g2_points_from_jax(*state["points_b2"], device=device)
+    out["coef_val_mont"] = to_torch(state["coef_val_mont"], device)
+    for k in ("coef_m", "coef_c", "coef_s"):
+        out[k] = torch.from_numpy(np.asarray(state[k], np.int64)).to(device)
+    return out

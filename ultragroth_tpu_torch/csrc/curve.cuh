@@ -1,0 +1,219 @@
+// XYZZ short-Weierstrass group law (a = 0) over Fq (G1) or Fq2 (G2), and
+// the per-lane bodies of the curve kernels.
+//
+// The formulas and the order of the special-case selects are those of the
+// JAX package's ultragroth_tpu/ops/curve.py:96-201 (dbl-2008-s-1,
+// madd-2008-s, add-2008-s, complete-ified by computing the doubling and
+// selecting), so a kernel's canonical output equals the plain PyTorch
+// version in ops/curve.py lane for lane.  Each lane body is
+// __host__ __device__: the .cu files wrap it in one __global__ function per
+// kernel and group, and the tests' g++ harness runs it on the host.
+#pragma once
+#include "field.cuh"
+
+namespace ug {
+
+template <class F>
+struct xyzz { typename F::E x, y, zz, zzz; };
+
+template <class F>
+UG_HD xyzz<F> inf_xyzz() {
+  return {F::one_mont(), F::one_mont(), F::zero(), F::zero()};
+}
+
+// dbl-2008-s-1; maps the infinity encoding (zz == 0) to itself
+template <class F>
+UG_HD xyzz<F> dbl(const xyzz<F>& p) {
+  using E = typename F::E;
+  E u = F::add(p.y, p.y);
+  E v = F::mul(u, u);
+  E xx = F::mul(p.x, p.x);
+  E m = F::add(F::add(xx, xx), xx);
+  E w = F::mul(u, v);
+  E s = F::mul(p.x, v);
+  E mm = F::mul(m, m);
+  E x3 = F::sub(mm, F::add(s, s));
+  E t1 = F::mul(m, F::sub(s, x3));
+  E t2 = F::mul(w, p.y);
+  return {x3, F::sub(t1, t2), F::mul(v, p.zz), F::mul(w, p.zzz)};
+}
+
+// shared tail of madd / add (ops/curve.py _add_core)
+template <class F>
+UG_HD xyzz<F> add_core(const typename F::E& u1, const typename F::E& u2,
+                       const typename F::E& s1, const typename F::E& s2,
+                       const typename F::E& zz_a, const typename F::E& zzz_a,
+                       bool& same_x, bool& same_y) {
+  using E = typename F::E;
+  E pp_ = F::sub(u2, u1);
+  E r_ = F::sub(s2, s1);
+  same_x = F::is_zero(pp_);
+  same_y = F::is_zero(r_);
+  E pp = F::sqr(pp_);
+  E rr = F::sqr(r_);
+  E ppp = F::mul(pp_, pp);
+  E q_ = F::mul(u1, pp);
+  E zz3 = F::mul(zz_a, pp);
+  E x3 = F::sub(F::sub(rr, ppp), F::add(q_, q_));
+  E t1 = F::mul(r_, F::sub(q_, x3));
+  E t2 = F::mul(s1, ppp);
+  return {x3, F::sub(t1, t2), zz3, F::mul(zzz_a, ppp)};
+}
+
+// complete mixed add P + (qx, qy) (q_inf marks Q = infinity)
+template <class F>
+UG_HD xyzz<F> madd_unified(const xyzz<F>& p, const typename F::E& qx,
+                           const typename F::E& qy, bool q_inf) {
+  using E = typename F::E;
+  bool p_inf = F::is_zero(p.zz);
+  E u2 = F::mul(qx, p.zz);
+  E s2 = F::mul(qy, p.zzz);
+  bool same_x, same_y;
+  xyzz<F> added = add_core<F>(p.x, u2, p.y, s2, p.zz, p.zzz, same_x, same_y);
+  E zq = q_inf ? F::zero() : F::one_mont();
+  xyzz<F> q = {qx, qy, zq, zq};
+  xyzz<F> out = added;
+  if (same_x && same_y) out = dbl<F>(q);
+  if (same_x && !same_y && !p_inf && !q_inf) out = inf_xyzz<F>();
+  if (q_inf) out = p;
+  if (p_inf) out = q;
+  return out;
+}
+
+// incomplete mixed add (10 muls); bad = x-collision or P at infinity
+template <class F>
+UG_HD xyzz<F> madd_fast(const xyzz<F>& p, const typename F::E& qx,
+                        const typename F::E& qy, bool& bad) {
+  using E = typename F::E;
+  E u2 = F::mul(qx, p.zz);
+  E s2 = F::mul(qy, p.zzz);
+  bool same_x, same_y;
+  xyzz<F> added = add_core<F>(p.x, u2, p.y, s2, p.zz, p.zzz, same_x, same_y);
+  bad = same_x || F::is_zero(p.zz);
+  return added;
+}
+
+// complete xyzz + xyzz add (doubles when p == q)
+template <class F>
+UG_HD xyzz<F> add_unified(const xyzz<F>& p, const xyzz<F>& q) {
+  using E = typename F::E;
+  bool p_inf = F::is_zero(p.zz);
+  bool q_inf = F::is_zero(q.zz);
+  E u1 = F::mul(p.x, q.zz);
+  E u2 = F::mul(q.x, p.zz);
+  E s1 = F::mul(p.y, q.zzz);
+  E s2 = F::mul(q.y, p.zzz);
+  E zz_a = F::mul(p.zz, q.zz);
+  E zzz_a = F::mul(p.zzz, q.zzz);
+  bool same_x, same_y;
+  xyzz<F> out = add_core<F>(u1, u2, s1, s2, zz_a, zzz_a, same_x, same_y);
+  if (same_x && same_y) out = dbl<F>(p);
+  if (same_x && !same_y && !p_inf && !q_inf) out = inf_xyzz<F>();
+  if (q_inf) out = p;
+  if (p_inf) out = q;
+  return out;
+}
+
+// ---------------------------------------------------------------------------
+// Lane I/O: an xyzz batch is [4 coords][K comps][8 limbs][n lanes], an
+// affine table [2][K][8][T]; element slots run coordinate-major.
+// ---------------------------------------------------------------------------
+template <class F>
+UG_HD xyzz<F> load_xyzz(const uint32_t* p, int64_t n, int64_t i) {
+  xyzz<F> r;
+  load_elem(p, n, i, 0, r.x); load_elem(p, n, i, 1, r.y);
+  load_elem(p, n, i, 2, r.zz); load_elem(p, n, i, 3, r.zzz);
+  return r;
+}
+
+template <class F>
+UG_HD void store_xyzz(uint32_t* p, int64_t n, int64_t i, const xyzz<F>& a) {
+  store_elem(p, n, i, 0, F::exit(a.x)); store_elem(p, n, i, 1, F::exit(a.y));
+  store_elem(p, n, i, 2, F::exit(a.zz)); store_elem(p, n, i, 3, F::exit(a.zzz));
+}
+
+// The gather the JAX bucket loop does before its kernel (ops/msm.py:
+// 233-236), fused: lane i at step t reads order entry gidx[i] + t*stride[i]
+// (entry 0 when the lane is past its count), entry = pid*2 + sign.
+template <class F>
+UG_HD bool gather_q(const uint32_t* table, int64_t T, const int32_t* orders,
+                    const int32_t* gidx, const int32_t* stride,
+                    const int32_t* cnt, int32_t t, int64_t i,
+                    typename F::E& qx, typename F::E& qy) {
+  bool valid = t < cnt[i];
+  int64_t pos = valid ? (int64_t)gidx[i] + (int64_t)t * stride[i] : 0;
+  int32_t ent = orders[pos];
+  int64_t pid = ent >> 1;
+  load_elem(table, T, pid, 0, qx);
+  load_elem(table, T, pid, 1, qy);
+  if (ent & 1) qy = F::neg(qy);
+  return valid;
+}
+
+// curve_madd_fast: out = valid ? acc + (+-Q) : acc; returns valid & bad
+template <class F>
+UG_HD bool lane_madd_fast(const uint32_t* acc, uint32_t* out, const uint32_t* table,
+                          int64_t T, const int32_t* orders, const int32_t* gidx,
+                          const int32_t* stride, const int32_t* cnt, int32_t t,
+                          int64_t n, int64_t i) {
+  xyzz<F> a = load_xyzz<F>(acc, n, i);
+  bool bad = false;
+  if (t < cnt[i]) {
+    typename F::E qx, qy;
+    gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
+    a = madd_fast<F>(a, qx, qy, bad);
+  }
+  store_xyzz<F>(out, n, i, a);
+  return bad;
+}
+
+// curve_madd_signed: complete acc + (+-Q), Q = infinity past the count
+template <class F>
+UG_HD void lane_madd_signed(const uint32_t* acc, uint32_t* out, const uint32_t* table,
+                            int64_t T, const int32_t* orders, const int32_t* gidx,
+                            const int32_t* stride, const int32_t* cnt, int32_t t,
+                            int64_t n, int64_t i) {
+  xyzz<F> a = load_xyzz<F>(acc, n, i);
+  typename F::E qx, qy;
+  bool valid = gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
+  store_xyzz<F>(out, n, i, madd_unified<F>(a, qx, qy, !valid));
+}
+
+// curve_add_where: out = ok ? a + b : a (ok == nullptr: every lane)
+template <class F>
+UG_HD void lane_add_where(const uint32_t* a, const uint32_t* b, const uint8_t* ok,
+                          uint32_t* out, int64_t n, int64_t i) {
+  xyzz<F> pa = load_xyzz<F>(a, n, i);
+  if (ok == nullptr || ok[i]) pa = add_unified<F>(pa, load_xyzz<F>(b, n, i));
+  store_xyzz<F>(out, n, i, pa);
+}
+
+// curve_horner_scale: lane w doubled c*w times (in place)
+template <class F>
+UG_HD void lane_horner(uint32_t* pts, int64_t n, int c, int64_t i) {
+  xyzz<F> p = load_xyzz<F>(pts, n, i);
+  const int64_t k = (int64_t)c * i;
+  for (int64_t s = 0; s < k; s++) p = dbl<F>(p);
+  store_xyzz<F>(pts, n, i, p);
+}
+
+// fr_butterfly, one DIT stage in place over a [8, n] array: pair
+// (u, w) = (blk*2h + j, blk*2h + h + j) -> (u + w*tw[j], u - w*tw[j])
+UG_HD void lane_butterfly(uint32_t* a, const uint32_t* tw, int64_t n, int64_t half,
+                          int64_t i) {
+  int64_t blk = i / half, j = i - blk * half;
+  int64_t iu = blk * 2 * half + j, iw = iu + half;
+  fe u = load(a, n, iu, 0);
+  fe t = Fr::mul(load(a, n, iw, 0), load(tw, half, j, 0));
+  store(a, n, iu, 0, Fr::add(u, t));
+  store(a, n, iw, 0, Fr::sub(u, t));
+}
+
+// fr_mont_mul: out = a * b * R^-1, b broadcast over lanes when b_n == 1
+UG_HD void lane_fr_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                       int64_t n, int64_t b_n, int64_t i) {
+  fe bb = b_n == 1 ? load(b, 1, 0, 0) : load(b, n, i, 0);
+  store(out, n, i, 0, Fr::mul(load(a, n, i, 0), bb));
+}
+
+}  // namespace ug

@@ -1,0 +1,61 @@
+// Host build of the kernels' lane bodies (g++, no CUDA): every launcher of
+// the .cu files as a plain loop over lanes, with the carry-chain
+// primitives emulated (field.cuh).  The CPU tests build it to check the
+// kernels' arithmetic against the plain PyTorch versions without a card.
+#include "curve.cuh"
+
+#define UG_HOST_CURVE(G, F)                                                   \
+  extern "C" int ugh_##G##_madd_fast(const void* acc, void* out,              \
+      const void* table, int64_t T, const void* orders, const void* gidx,     \
+      const void* stride, const void* cnt, int32_t t, void* flag,             \
+      void* sticky, int64_t n) {                                              \
+    for (int64_t i = 0; i < n; i++) {                                         \
+      bool bad = ug::lane_madd_fast<F>((const uint32_t*)acc, (uint32_t*)out,  \
+          (const uint32_t*)table, T, (const int32_t*)orders,                  \
+          (const int32_t*)gidx, (const int32_t*)stride,                       \
+          (const int32_t*)cnt, t, n, i);                                      \
+      ((uint8_t*)flag)[i] = bad;                                              \
+      if (bad && sticky) *(int32_t*)sticky |= 1;                              \
+    }                                                                         \
+    return 0;                                                                 \
+  }                                                                           \
+  extern "C" int ugh_##G##_madd_signed(const void* acc, void* out,            \
+      const void* table, int64_t T, const void* orders, const void* gidx,     \
+      const void* stride, const void* cnt, int32_t t, int64_t n) {            \
+    for (int64_t i = 0; i < n; i++)                                           \
+      ug::lane_madd_signed<F>((const uint32_t*)acc, (uint32_t*)out,           \
+          (const uint32_t*)table, T, (const int32_t*)orders,                  \
+          (const int32_t*)gidx, (const int32_t*)stride,                       \
+          (const int32_t*)cnt, t, n, i);                                      \
+    return 0;                                                                 \
+  }                                                                           \
+  extern "C" int ugh_##G##_add_where(const void* a, const void* b,            \
+      const void* ok, void* out, int64_t n) {                                 \
+    for (int64_t i = 0; i < n; i++)                                           \
+      ug::lane_add_where<F>((const uint32_t*)a, (const uint32_t*)b,           \
+          (const uint8_t*)ok, (uint32_t*)out, n, i);                          \
+    return 0;                                                                 \
+  }                                                                           \
+  extern "C" int ugh_##G##_horner(void* pts, int64_t n, int c) {              \
+    for (int64_t i = 0; i < n; i++)                                           \
+      ug::lane_horner<F>((uint32_t*)pts, n, c, i);                            \
+    return 0;                                                                 \
+  }
+
+UG_HOST_CURVE(g1, ug::Fq)
+UG_HOST_CURVE(g2, ug::Fq2)
+
+extern "C" int ugh_fr_mont_mul(const void* a, const void* b, void* out,
+                               int64_t n, int64_t b_n) {
+  for (int64_t i = 0; i < n; i++)
+    ug::lane_fr_mul((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out,
+                    n, b_n, i);
+  return 0;
+}
+
+extern "C" int ugh_fr_butterfly(void* a, const void* tw, int64_t n,
+                                int64_t half) {
+  for (int64_t i = 0; i < n / 2; i++)
+    ug::lane_butterfly((uint32_t*)a, (const uint32_t*)tw, n, half, i);
+  return 0;
+}

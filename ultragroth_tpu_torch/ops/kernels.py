@@ -1,0 +1,301 @@
+"""The port's kernel registry: six CUDA kernels, each with its plain
+PyTorch version beside it.
+
+Twin of the JAX package's `ops/kernels.py`, which pairs each Pallas kernel
+with its rolled formula.  Here every wrapper looks at where its tensors
+live: on the CPU it runs the plain version of this module; on a CUDA
+device it launches its kernel (`csrc/`, built by `_build.py`) on the
+current stream, or raises — there is no fallback from the card to the
+plain version.  Each wrapper adds one to its launch count where it
+launches, and nowhere else.
+
+Tensor contract (plane-major, see `limbs.py`):
+  Fr element batch  [8, *batch]            xyzz G1 [4, 8, n], G2 [4, 2, 8, n]
+  affine table G1   [2, 8, T], G2 [2, 2, 8, T]
+  on CUDA the limbs are int32 (u32 bit patterns), every index int32, every
+  flag bool; everything contiguous.
+
+The curve kernels' outputs are canonical (the lazy Fq reduction inside a
+launch is canonicalised at exit), so a kernel's output equals its plain
+version's exactly.
+"""
+from __future__ import annotations
+
+import collections
+
+import torch
+
+from .curve import curve_ops
+from .field import fr
+
+KERNELS = {
+    # name: (source in the repo, the TPU kernel it replaces)
+    "fr_mont_mul": ("ultragroth_tpu_torch/csrc/fr_kernels.cu",
+                    "ultragroth_tpu/ops/kernels.py:22"),
+    "fr_butterfly": ("ultragroth_tpu_torch/csrc/fr_kernels.cu",
+                     "ultragroth_tpu/ops/kernels.py:32"),
+}
+for _g in ("g1", "g2"):
+    KERNELS.update({
+        f"{_g}_madd_fast": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                            "ultragroth_tpu/ops/kernels.py:102"),
+        f"{_g}_madd_signed": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                              "ultragroth_tpu/ops/kernels.py:77"),
+        f"{_g}_add_where": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                            "ultragroth_tpu/ops/kernels.py:171"),
+        f"{_g}_horner_scale": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                               "ultragroth_tpu/ops/kernels.py:133"),
+    })
+
+_launches: collections.Counter = collections.Counter()
+
+
+def launch_counts() -> dict:
+    """Launches of each kernel since the last reset."""
+    return {name: _launches[name] for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    _launches.clear()
+
+
+# -- launch plumbing ---------------------------------------------------------
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def _check(x: torch.Tensor, dtype: torch.dtype, shape=None, name="tensor"):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+
+
+def _launch(name: str, launcher: str, *args) -> None:
+    from . import _build
+    fn = _build.load()[launcher]
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    _launches[name] += 1
+
+
+def _elem_shape(group: str) -> tuple:
+    return (8,) if group == "g1" else (2, 8)
+
+
+def _madd_out(group, acc, table, orders, gidx, stride, cnt, out):
+    """Check the madd kernels' CUDA arguments; return the output buffer."""
+    n = acc.shape[-1]
+    e = _elem_shape(group)
+    _check(acc, torch.int32, (4, *e, n), "acc")
+    _check(table, torch.int32, name="table")
+    if tuple(table.shape[:-1]) != (2, *e):
+        raise ValueError(f"table: shape {tuple(table.shape)}")
+    _check(orders, torch.int32, name="orders")
+    for nm, v in (("gidx", gidx), ("stride", stride), ("cnt", cnt)):
+        _check(v, torch.int32, (n,), nm)
+    out = torch.empty_like(acc) if out is None else out
+    _check(out, torch.int32, acc.shape, "out")
+    return out
+
+
+# -- fr_mont_mul ---------------------------------------------------------------
+
+def fr_mont_mul_plain(a, b):
+    return fr().mont_mul(a, b)
+
+
+def fr_mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fr Montgomery product a * b * R^-1, canonical.  a: [8, *batch];
+    b: the same shape, or [8, 1, ...] broadcast over every lane.  Any
+    a < 2^256 is accepted when b < r."""
+    if not _on_cuda(a):
+        return fr_mont_mul_plain(a, b)
+    _check(a, torch.int32, name="a")
+    _check(b, torch.int32, name="b")
+    n = a.numel() // 8
+    b_n = b.numel() // 8
+    if a.shape[0] != 8 or b.shape[0] != 8 or b_n not in (1, n):
+        raise ValueError(f"fr_mont_mul: shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    out = torch.empty_like(a)
+    _launch("fr_mont_mul", "ug_fr_mont_mul", a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, b_n)
+    return out
+
+
+# -- fr_butterfly ----------------------------------------------------------------
+
+def fr_butterfly_plain(a, tw):
+    F = fr()
+    half = tw.shape[1]
+    v = a.view(8, -1, 2, half)
+    u, w = v[:, :, 0, :], v[:, :, 1, :]
+    t = F.mont_mul(w, tw[:, None, :])
+    hi, lo = F.add(u, t), F.sub(u, t)
+    v[:, :, 0, :] = hi
+    v[:, :, 1, :] = lo
+    return a
+
+
+def fr_butterfly(a: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """One DIT stage IN PLACE over a [8, n] Montgomery array: with h =
+    tw.shape[1], pair (u, w) = (a[blk*2h + j], a[blk*2h + h + j]) becomes
+    (u + w*tw[j], u - w*tw[j]).  The JAX kernel's (u, w, tw) -> (hi, lo)
+    over gathered halves, applied to the array the NTT stage reads."""
+    half = tw.shape[1]
+    if a.dim() != 2 or a.shape[0] != 8 or a.shape[1] % (2 * half):
+        raise ValueError(f"fr_butterfly: shapes {tuple(a.shape)}, "
+                         f"{tuple(tw.shape)}")
+    if not _on_cuda(a):
+        return fr_butterfly_plain(a, tw)
+    _check(a, torch.int32, name="a")
+    _check(tw, torch.int32, (8, half), "tw")
+    _launch("fr_butterfly", "ug_fr_butterfly", a.data_ptr(), tw.data_ptr(),
+            a.shape[1], half)
+    return a
+
+
+# -- curve kernels ------------------------------------------------------------------
+
+def gather_points_plain(group, table, orders, gidx, stride, cnt, t: int):
+    """The bucket loop's per-step point fetch: lane i reads order entry
+    gidx[i] + t*stride[i] (entry 0 past its count), entry = pid*2 + sign,
+    and takes table point pid, negated when sign is set.
+    Returns (qx, qy, valid)."""
+    ops = curve_ops(group)
+    valid = t < cnt
+    pos = torch.where(valid, gidx.long() + t * stride.long(),
+                      torch.zeros_like(gidx, dtype=torch.long))
+    ent = orders.long()[pos]
+    q = table[..., ent >> 1]
+    neg = (ent & 1) != 0
+    return q[0], torch.where(neg, ops.F.neg(q[1]), q[1]), valid
+
+
+def curve_madd_fast_plain(group, acc, table, orders, gidx, stride, cnt, t,
+                          sticky=None):
+    ops = curve_ops(group)
+    qx, qy, valid = gather_points_plain(group, table, orders, gidx, stride,
+                                        cnt, t)
+    added, bad = ops.madd_fast(acc, qx, qy)
+    flag = bad & valid
+    if sticky is not None:
+        sticky |= flag.any().to(sticky.dtype)
+    return ops.select(valid, added, acc), flag
+
+
+def curve_madd_fast(group: str, acc, table, orders, gidx, stride, cnt,
+                    t: int, out=None, sticky=None):
+    """Incomplete signed mixed add of the bucket loop's common case, with
+    the point gather fused: out = valid ? acc + (+-Q) : acc and flag =
+    valid & (x-collision | acc at infinity), valid = t < cnt.  `out` may
+    be `acc` (in place, saves a buffer per step); `sticky` ([1] int32)
+    is OR-ed with 1 when any lane flags."""
+    if not _on_cuda(acc):
+        res, flag = curve_madd_fast_plain(group, acc, table, orders, gidx,
+                                          stride, cnt, t, sticky)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res, flag
+    out = _madd_out(group, acc, table, orders, gidx, stride, cnt, out)
+    n = acc.shape[-1]
+    flag = torch.empty(n, dtype=torch.bool, device=acc.device)
+    if sticky is not None:
+        _check(sticky, torch.int32, (1,), "sticky")
+    _launch(f"{group}_madd_fast", f"ug_{group}_madd_fast", acc.data_ptr(),
+            out.data_ptr(), table.data_ptr(), table.shape[-1],
+            orders.data_ptr(), gidx.data_ptr(), stride.data_ptr(),
+            cnt.data_ptr(), t, flag.data_ptr(),
+            None if sticky is None else sticky.data_ptr(), n)
+    return out, flag
+
+
+def curve_madd_signed_plain(group, acc, table, orders, gidx, stride, cnt, t):
+    ops = curve_ops(group)
+    qx, qy, valid = gather_points_plain(group, table, orders, gidx, stride,
+                                        cnt, t)
+    return ops.madd_unified(acc, qx, qy, ~valid)
+
+
+def curve_madd_signed(group: str, acc, table, orders, gidx, stride, cnt,
+                      t: int, out=None):
+    """Complete signed mixed add with the fused gather: acc + (+-Q), Q at
+    infinity where t >= cnt.  Seeds every bucket and redoes a flagged
+    drain.  `out` may be `acc`."""
+    if not _on_cuda(acc):
+        res = curve_madd_signed_plain(group, acc, table, orders, gidx,
+                                      stride, cnt, t)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res
+    out = _madd_out(group, acc, table, orders, gidx, stride, cnt, out)
+    n = acc.shape[-1]
+    _launch(f"{group}_madd_signed", f"ug_{group}_madd_signed",
+            acc.data_ptr(), out.data_ptr(), table.data_ptr(),
+            table.shape[-1], orders.data_ptr(), gidx.data_ptr(),
+            stride.data_ptr(), cnt.data_ptr(), t, n)
+    return out
+
+
+def curve_add_where_plain(group, a, b, ok=None):
+    ops = curve_ops(group)
+    s = ops.add_unified(a, b)
+    return s if ok is None else ops.select(ok, s, a)
+
+
+def curve_add_where(group: str, a, b, ok=None):
+    """ok ? a + b : a, complete xyzz add (doubles where a == b);
+    ok=None adds on every lane."""
+    if not _on_cuda(a):
+        return curve_add_where_plain(group, a, b, ok)
+    n = a.shape[-1]
+    e = _elem_shape(group)
+    _check(a, torch.int32, (4, *e, n), "a")
+    _check(b, torch.int32, (4, *e, n), "b")
+    if ok is not None:
+        _check(ok, torch.bool, (n,), "ok")
+    out = torch.empty_like(a)
+    _launch(f"{group}_add_where", f"ug_{group}_add_where", a.data_ptr(),
+            b.data_ptr(), None if ok is None else ok.data_ptr(),
+            out.data_ptr(), n)
+    return out
+
+
+def curve_horner_scale_plain(group, pts, c: int):
+    ops = curve_ops(group)
+    n = pts.shape[-1]
+    lane = torch.arange(n, device=pts.device)
+    for i in range(c * (n - 1)):
+        pts = ops.select(i < c * lane, ops.dbl(pts), pts)
+    return pts
+
+
+def curve_horner_scale(group: str, pts, c: int):
+    """xyzz window sums [4, *elem, W] -> lane w doubled c*w times, i.e.
+    2^(c*w) * S_w (the window combine's scaling).  The lane index is the
+    window index, so one launch block holds every lane: W <= 128."""
+    n = pts.shape[-1]
+    if n > 128:
+        raise ValueError(f"curve_horner_scale: {n} windows > 128")
+    if not _on_cuda(pts):
+        return curve_horner_scale_plain(group, pts, c)
+    e = _elem_shape(group)
+    _check(pts, torch.int32, (4, *e, n), "pts")
+    out = pts.clone()
+    _launch(f"{group}_horner_scale", f"ug_{group}_horner", out.data_ptr(),
+            n, c)
+    return out

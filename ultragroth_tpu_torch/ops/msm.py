@@ -1,0 +1,301 @@
+"""Multi-scalar multiplication (Pippenger), G1 and G2.
+
+The twin of the JAX package's `ops/msm.py:76-530` (`msm_g1`, `msm_g2` and
+their stages), same algorithm and same stage contracts:
+
+  1. signed digits: windowed-NAF recode, bucket = |d|, sign = d < 0, so
+     2^(c-1) buckets per window; a spare window takes the last carry when
+     254 % c == 0;
+  2. bucket accumulation for ALL windows and buckets at once: points sorted
+     by bucket (`torch.sort(stable=True)` with pid*2+sign carried as the
+     value), every (window, bucket) lane adds its t-th point per step
+     through ONE `curve_madd_fast` launch that gathers its own point;
+     skewed top windows split into sub-lanes (`_split_factor`); two phases
+     (all lanes to the kb-th largest count, then the kb heaviest lanes);
+  3. bucket reduction sum_i (i+1) B_i by binary decomposition, every level
+     one `curve_add_where` launch;
+  4. window combine: `curve_horner_scale` (lane w doubled c*w times), then
+     a log2(W) pairwise fold.
+
+Host loops replace the JAX control flow:
+  * the `lax.while_loop` with a device trip count becomes a Python loop
+    over steps; `max_count` and `end_a` are read back ONCE per MSM;
+  * the sticky-flag `lax.cond` becomes one readback of a device flag word
+    after each drain (`curve_madd_fast` ORs 1 into it when any lane
+    flags); when set, the drain is redone from its saved start with the
+    complete `curve_madd_signed`.  Sound because the FIRST exceptional
+    step is caught while the accumulator is still valid;
+  * `lax.sort(num_keys=1)` becomes `torch.sort(stable=True)`, and
+    `lax.top_k` becomes `torch.topk` (ties may resolve differently; any
+    kb lanes of largest count drain every point, see `_accumulate`);
+  * the width-ladder padding of `_add_all` and the power-of-two padding of
+    `_pad_pow2` only shared compiled shapes, and are dropped.
+
+Kernel outputs are canonical, so the reduction's negation is the plain
+canonical one and the result needs no final canonicalisation.  `msm` runs
+under `torch.inference_mode()`: no autograd bookkeeping on the many small
+tensor ops of the host loop.
+
+Scalars are STANDARD-form Fr [8, N] and must be canonical (< r):
+`_split_factor` sizes the top windows' lanes from r, and a larger scalar
+would silently drop points, so `msm` checks and raises.  Points are
+Montgomery-form affine tables [2, *elem, N] with an infinity mask [N].
+"""
+from __future__ import annotations
+
+import torch
+
+from ..constants import FR_MODULUS
+from . import kernels
+from .curve import curve_ops
+from .limbs import int_to_limbs, widen
+
+SCALAR_BITS = 254          # BN254 r bit length
+
+
+def default_window(n: int) -> int:
+    """Pippenger window size (same table as the JAX package)."""
+    if n >= (1 << 22):
+        return 16
+    if n >= (1 << 16):
+        return 13
+    if n >= (1 << 12):
+        return 10
+    return 8
+
+
+def n_windows_for(c: int) -> int:
+    w = -(-SCALAR_BITS // c)
+    return w + 1 if SCALAR_BITS % c == 0 else w
+
+
+def _split_factor(w: int, c: int) -> int:
+    """Static sub-accumulator split for window w: window w's signed bucket
+    index is <= (r-1) >> (c*w) (+1 with the recode carry), so give each
+    index 2^(c-1) / next_pow2(top+2) lanes and per-lane counts stay
+    ~2N/2^c.  Load-bearing: scalars must be canonical (< r)."""
+    n_buckets = 1 << (c - 1)
+    top = (FR_MODULUS - 1) >> (c * w)
+    if top + 1 >= n_buckets:
+        return 1
+    return max(1, n_buckets // (1 << (top + 1).bit_length()))
+
+
+def _scalars_below_r(s64: torch.Tensor) -> torch.Tensor:
+    """[8, N] int64 limbs -> bool: every scalar < r (lexicographic from the
+    top limb)."""
+    r = int_to_limbs(FR_MODULUS)
+    lt = torch.zeros(s64.shape[1], dtype=torch.bool, device=s64.device)
+    eq = torch.ones_like(lt)
+    for j in range(7, -1, -1):
+        lt |= eq & (s64[j] < r[j])
+        eq &= s64[j] == r[j]
+    return lt.all()
+
+
+def _signed_digits(s64: torch.Tensor, c: int, n_windows: int):
+    """Windowed-NAF recode: d + carry_in = d' + 2^c carry_out with
+    d' in [-(2^(c-1) - 1), 2^(c-1)].  Returns (bucket |d'|, neg d' < 0),
+    both [W, N].  The top window never carries out."""
+    half = 1 << (c - 1)
+    mask = (1 << c) - 1
+    buckets, negs = [], []
+    carry = torch.zeros_like(s64[0])
+    for w in range(n_windows):
+        bit0 = w * c
+        limb, off = divmod(bit0, 32)
+        d = s64[limb] >> off if limb < 8 else torch.zeros_like(s64[0])
+        if off + c > 32 and limb + 1 < 8:
+            d = d | (s64[limb + 1] << (32 - off))
+        d = (d & mask) + carry
+        neg = d > half
+        buckets.append(torch.where(neg, (1 << c) - d, d))
+        negs.append(neg)
+        carry = neg.long()
+    return torch.stack(buckets), torch.stack(negs)
+
+
+def _accumulate(group: str, table, orders, counts, c: int, splits):
+    """Bucket accumulation for all windows, two-phase (JAX package's
+    `_bucket_accumulate_all`).  orders [W, N] int32 entries pid*2+sign,
+    counts [W, 2^(c-1)].  Returns xyzz sub-lane accumulators
+    [4, *elem, W, 2^(c-1)]."""
+    ops = curve_ops(group)
+    dev = table.device
+    dtype = table.dtype
+    n_buckets = 1 << (c - 1)
+    n_windows, n = orders.shape
+    lanes = n_windows * n_buckets
+    counts = counts.long()
+    offsets = torch.cat([torch.zeros((n_windows, 1), dtype=torch.long,
+                                     device=dev),
+                         torch.cumsum(counts, 1)[:, :-1]], 1)
+    lane = torch.arange(n_buckets, device=dev)[None, :]
+    split_w = torch.tensor(splits, device=dev)[:, None]
+    d = lane // split_w
+    j = lane % split_w
+    base = offsets.gather(1, d) + j
+    cnt = counts.gather(1, d)
+    cnt = torch.clamp(cnt - j + split_w - 1, min=0) // split_w
+    w_off = (torch.arange(n_windows, device=dev) * n)[:, None]
+    orders_f = orders.reshape(-1).contiguous()
+    gidx = (w_off + base).reshape(-1).to(torch.int32).contiguous()
+    stride = split_w.expand(-1, n_buckets).reshape(-1).to(torch.int32).contiguous()
+    cnt_f = cnt.reshape(-1)
+
+    two_phase = lanes > 8192
+    kb = lanes // 8
+    max_count = cnt_f.max()
+    end_a = (torch.minimum(torch.clamp(torch.sort(cnt_f).values[lanes - kb],
+                                       min=1), max_count)
+             if two_phase else max_count)
+    max_count, end_a = (int(v) for v in torch.stack([max_count, end_a]).tolist())
+    cnt32 = cnt_f.to(torch.int32).contiguous()
+
+    def seed(gi, st, cn, t0, width):
+        acc = ops.inf_xyzz((width,), dev, dtype).contiguous()
+        return kernels.curve_madd_signed(group, acc, table, orders_f, gi, st,
+                                         cn, t0, out=acc)
+
+    def drain(acc, gi, st, cn, t_from, t_to):
+        """Fast madd steps t_from..t_to-1 in place; one readback of the
+        sticky flag; a flagged drain is redone with the complete add."""
+        if t_from >= t_to:
+            return acc
+        start = acc.clone()
+        sticky = torch.zeros(1, dtype=torch.int32, device=dev)
+        for t in range(t_from, t_to):
+            kernels.curve_madd_fast(group, acc, table, orders_f, gi, st, cn,
+                                    t, out=acc, sticky=sticky)
+        if int(sticky.item()) == 0:
+            return acc
+        acc = start
+        for t in range(t_from, t_to):
+            kernels.curve_madd_signed(group, acc, table, orders_f, gi, st,
+                                      cn, t, out=acc)
+        return acc
+
+    acc = seed(gidx, stride, cnt32, 0, lanes)
+    acc = drain(acc, gidx, stride, cnt32, 1, end_a)
+    if two_phase and end_a < max_count:
+        # lanes with count > end_a number fewer than kb, so the kb largest
+        # hold all of them whichever way ties fall
+        ids = torch.topk(cnt_f, kb).indices
+        gi_b = gidx[ids].contiguous()
+        st_b = stride[ids].contiguous()
+        cn_b = cnt32[ids].contiguous()
+        acc_b = seed(gi_b, st_b, cn_b, end_a, kb)
+        acc_b = drain(acc_b, gi_b, st_b, cn_b, end_a + 1, max_count)
+        merged = kernels.curve_add_where(group, acc[..., ids].contiguous(),
+                                         acc_b)
+        acc[..., ids] = merged
+    return acc.reshape(acc.shape[:-1] + (n_windows, n_buckets))
+
+
+def _add_all(group, a, b):
+    """Complete add of two xyzz batches of any trailing batch shape."""
+    shape = a.shape
+    lead = tuple(shape[:2 if group == "g1" else 3])      # [4, *elem]
+    out = kernels.curve_add_where(group, a.reshape(lead + (-1,)).contiguous(),
+                                  b.reshape(lead + (-1,)).contiguous())
+    return out.reshape(shape)
+
+
+def _fold_pairs(group, acc):
+    """xyzz [..., 2m] -> [..., m]: lane i = acc[2i] + acc[2i+1]."""
+    return _add_all(group, acc[..., 0::2], acc[..., 1::2])
+
+
+def _weighted_totals(group, buckets, n_buckets: int):
+    """sum_i (i+1) B_i per window by binary decomposition:
+    S'(V) = 2 S'(E + O) - sum(E), S'([v]) = v, the negated even halves
+    banked alongside (every level one fused add), then a Horner over the
+    banked levels.  buckets [4, *elem, Wg, m] -> [4, *elem, Wg]."""
+    ops = curve_ops(group)
+    wg = buckets.shape[-2]
+    cur = buckets
+    pend = []                      # pend[l]: weight 2^l, negated even half
+    u = n_buckets
+    while u > 1:
+        ev_neg = ops.neg(cur[..., 0::2])
+        cat = torch.cat([cur] + pend, dim=-2)
+        folded = _fold_pairs(group, cat)
+        cur = folded[..., :wg, :]
+        pend = [folded[..., (i + 1) * wg:(i + 2) * wg, :]
+                for i in range(len(pend))]
+        pend.append(ev_neg)
+        u //= 2
+    total = cur[..., 0]
+    for lvl in reversed(pend):
+        total = _add_all(group, _add_all(group, total, total), lvl[..., 0])
+    return total
+
+
+@torch.inference_mode()
+def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
+        scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """sum_i scalars[i] * P_i as ONE xyzz point [4, *elem].
+
+    table: [2, *elem, N] Montgomery affine (x, y); inf: [N] bool;
+    scalars: [8, N] standard-form Fr planes, each < r (checked)."""
+    ops = curve_ops(group)
+    dev = table.device
+    n = table.shape[-1]
+    if scalars.shape != (8, n) or inf.shape != (n,):
+        raise ValueError(f"msm: table {tuple(table.shape)}, inf "
+                         f"{tuple(inf.shape)}, scalars {tuple(scalars.shape)}")
+    if n == 0:      # the kernels read order entry 0 for idle lanes
+        return ops.inf_xyzz((1,), dev, table.dtype)[..., 0]
+    s64 = widen(scalars)
+    if not bool(_scalars_below_r(s64)):
+        raise ValueError("msm: scalars must be canonical (< r)")
+    n_windows = n_windows_for(c)
+    n_buckets = 1 << (c - 1)
+    splits = [_split_factor(w, c) for w in range(n_windows)]
+
+    buckets, negs = _signed_digits(s64, c, n_windows)
+    # bucket b >= 1 -> index b-1; bucket 0 and infinity points -> sentinel
+    # n_buckets, which sorts last and is left out of the counts
+    idx = torch.where(buckets > 0, buckets - 1, n_buckets)
+    idx = torch.where(inf.to(dev)[None, :], n_buckets, idx)
+    enc = (torch.arange(n, device=dev)[None, :] * 2 + negs.long())
+    _, perm = torch.sort(idx, dim=1, stable=True)
+    orders = enc.gather(1, perm).to(torch.int32)
+    w_base = (torch.arange(n_windows, device=dev) * (n_buckets + 1))[:, None]
+    counts = torch.bincount((idx + w_base).reshape(-1),
+                            minlength=n_windows * (n_buckets + 1))
+    counts = counts.reshape(n_windows, n_buckets + 1)[:, :n_buckets]
+
+    acc = _accumulate(group, table.contiguous(), orders, counts, c, splits)
+
+    groups: dict[int, list[int]] = {}
+    for w in range(n_windows):
+        groups.setdefault(splits[w], []).append(w)
+    wsums = [None] * n_windows
+    for split, ws in groups.items():
+        g = acc[..., torch.tensor(ws, device=dev), :]
+        for _ in range(split.bit_length() - 1):
+            g = _fold_pairs(group, g)
+        totals = _weighted_totals(group, g, n_buckets // split)
+        for i, w in enumerate(ws):
+            wsums[w] = totals[..., i]
+
+    stacked = torch.stack(wsums, dim=-1).contiguous()
+    scaled = kernels.curve_horner_scale(group, stacked, c)
+    m = 1 << max(1, (n_windows - 1).bit_length())
+    pad = ops.inf_xyzz((m - n_windows,), dev, table.dtype)
+    total = torch.cat([scaled, pad], dim=-1)
+    while m > 1:
+        total = _fold_pairs(group, total)
+        m //= 2
+    return total[..., 0]
+
+
+def msm_g1(table, inf, scalars, c: int = 16):
+    """G1 MSM: table [2, 8, N]; returns xyzz [4, 8]."""
+    return msm("g1", table, inf, scalars, c)
+
+
+def msm_g2(table, inf, scalars, c: int = 16):
+    """G2 MSM: table [2, 2, 8, N]; returns xyzz [4, 2, 8]."""
+    return msm("g2", table, inf, scalars, c)
