@@ -6,11 +6,22 @@ Builds the port's CUDA kernels from the checkout (plain nvcc), holds every
 kernel against its plain PyTorch version on the card, proves a small
 circuit whose proof must verify, then proves a square-chain circuit of
 2^20 - 8 constraints (domain 2^20) on a synthetic key whose base points
-have known discrete logs, and checks each MSM output exactly.  One line per
-phase (name, seconds, pass/fail) is printed as each phase ends; before the
-last line come the card's name and power limit and one JSON object with
-every kernel's launches on the main path and its times; the last line is
-{"ok": true, "device": {...}}.  Any failed check exits non-zero.
+have known discrete logs, and checks each MSM output exactly (the quotient
+in the `fast` NTT mode, held against `base` and the plain versions).
+Then UltraGroth: the device set-up of small circuits, byte for byte
+against the host set-up, and a small proof on the card against the CPU;
+then the full-width lookup circuit (domain 2^20, T = 2^16), its key made
+by the device set-up on the card, proved, checked with the 5-pairing
+verifier and its lookup signals against the oracle's.
+
+One line per phase (name, seconds, pass/fail) is printed as each phase
+ends; before the last line come one JSON object with every kernel's
+launches (their sum over the driven paths in `launches`, each path's own
+count in `launches_by_path`) and its times, and the card's name and power
+limit; the last line is {"ok": true, "device": {...}}.  Any failed check
+exits non-zero.  Each driven path (the Groth16 2^20 prove, the same prove
+in the `base` NTT mode, the UltraGroth set-up and prove) runs with the
+launch counts set to 0 just before it and read just after.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -32,6 +43,13 @@ SMALL_CONSTRAINTS = 1022   # small verifiable prove: n_vars = domain = 2^10
 SEED = 20261017
 R_BLIND = 0x1234567890ABCDEF1234567890ABCDEF1234567890ABCDEF12345678
 S_BLIND = 0xFEDCBA0987654321FEDCBA0987654321FEDCBA0987654321FEDCBA09
+R0_BLIND = 0xAAAA567890ABCDEF1234567890ABCDEF1234567890ABCDEF12345678
+# UltraGroth at full width: the JAX package's lookup fixture (bench.py:
+# 291-316) at its end-to-end domain.  T = 2^16 (a 16-bit range-check
+# table); K chunks fill the rest of the domain: K + 2T + 2 = 2^20 - 6 rows.
+UG_TABLE = 1 << 16
+UG_CHUNKS = (1 << LOG_N) - (1 << 17) - 8
+UG_SMALL = (64, 16)        # chunks, table of the small set-up and prove
 
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; 67 TFLOP/s float32
 # outside the tensor cores = 33.5e12 FMA/s, and the int32 pipes issue half
@@ -318,6 +336,22 @@ def kernel_checks(dev):
            host_time_ms(lambda: K.fr_butterfly_plain(work.clone(), tw)),
            2 * 32 * n + 32 * (n // 2), (n // 2) * MUL_IMAD)
 
+    # -- fr_cg_ntt at the shape ntt_fast gives it at 2^20: two launches of
+    #    [8, 2^10, 2^10] (2^10 columns of 2^10 points) per transform -------
+    from ultragroth_tpu_torch.ops.ntt import Domain
+    log_m = K.CG_MAX_LOG
+    m, cb = 1 << log_m, table_n >> K.CG_MAX_LOG
+    dom = Domain(log_m, dev)
+    x = _rand_field((8, m * cb), R, gen, dev).reshape(8, m, cb).contiguous()
+    for inverse in (False, True):
+        tw = dom.cg_twiddles(log_m, inverse)
+        k = K.fr_cg_ntt(x, tw)
+        p = K.fr_cg_ntt_plain(x, tw)
+        check(torch.equal(k, p), "fr_cg_ntt disagrees with its plain version")
+    record("fr_cg_ntt", err(k, p), cuda_time_ms(lambda: K.fr_cg_ntt(x, tw), 50),
+           host_time_ms(lambda: K.fr_cg_ntt_plain(x, tw)),
+           2 * 32 * m * cb + tw.numel() * 4, log_m * (m // 2) * cb * MUL_IMAD)
+
     # -- curve kernels ----------------------------------------------------------
     for group in ("g1", "g2"):
         ops = curve_ops(group)
@@ -395,6 +429,8 @@ def kernel_checks(dev):
                3 * 4 * kq * 32 * fold_n + fold_n,
                n_ok * (12 * fq_mul + 2 * fq_sqr))
 
+        madd_valid_checks(group, gen, dev, record, err)
+
         h = acc[..., :horner_n].contiguous()
         k = K.curve_horner_scale(group, h, horner_c)
         p = K.curve_horner_scale_plain(group, h, horner_c)
@@ -409,17 +445,199 @@ def kernel_checks(dev):
     return results
 
 
+def madd_valid_checks(group, gen, dev, record, err):
+    """curve_madd_valid against its plain version at 2^16 lanes on the
+    device set-up's real window table, with infinity on either side,
+    P == Q and P == -Q among the lanes; timed at 2^20 lanes, the set-up's
+    chunk."""
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.ops.curve import curve_ops
+    from ultragroth_tpu_torch.testkit.dsetup import FB_CHUNK, _fb_table
+    ops = curve_ops(group)
+    kq = 1 if group == "g1" else 2
+    fq_mul = MUL_IMAD * (1 if group == "g1" else 3)
+    fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
+    table, tinf = _fb_table(group, dev)
+    n, w = 1 << 16, 5
+    sc = _rand_field((8, n), R, gen, dev)
+    sc[1, 16:48] |= 0x100                  # byte 5 != 0: Q finite
+    sc[1, 48:80] &= ~0xFF00                # byte 5 == 0: Q at infinity
+    acc = ops.inf_xyzz((n,), dev, torch.int32).contiguous()
+    for step in range(w):                  # real partial sums
+        acc = K.curve_madd_valid(group, acc, table, tinf, sc, step)
+    qx, qy, _ = K.fixed_base_gather_plain(table, tinf, sc, w)
+    q = ops.affine_to_xyzz(qx, qy, torch.zeros(n, dtype=torch.bool, device=dev))
+    acc[..., :16] = ops.inf_xyzz((16,), dev, torch.int32)       # P == inf
+    acc[..., 16:32] = q[..., 16:32]                             # P == Q
+    acc[..., 32:48] = ops.neg(q[..., 32:48])                    # P == -Q
+    acc[..., 64:80] = ops.inf_xyzz((16,), dev, torch.int32)     # both inf
+    acc = acc.contiguous()
+    k = K.curve_madd_valid(group, acc, table, tinf, sc, w)
+    p = K.curve_madd_valid_plain(group, acc, table, tinf, sc, w)
+    check(torch.equal(k, p), f"{group}_madd_valid disagrees with its plain "
+          "version")
+    check(bool(ops.is_inf(p[..., 32:48]).all()), f"{group}: P + (-P) != inf")
+    check(not bool(ops.is_inf(p[..., 16:32]).any()), f"{group}: 2P is inf")
+    check(torch.equal(p[..., 48:64], acc[..., 48:64]),
+          f"{group}: P + inf != P")
+
+    big = FB_CHUNK
+    sc_big = _rand_field((8, big), R, gen, dev)
+    acc_big = K.curve_madd_valid(group, ops.inf_xyzz((big,), dev, torch.int32)
+                                 .contiguous(), table, tinf, sc_big, 0)
+    out = torch.empty_like(acc_big)
+    needed = int(((sc_big[0] & 0xFF) != 0).logical_and(
+        ((sc_big[0] >> 8) & 0xFF) != 0).sum())   # both sides finite
+    record(f"{group}_madd_valid", err(k, p),
+           cuda_time_ms(lambda: K.curve_madd_valid(
+               group, acc_big, table, tinf, sc_big, 1, out=out), 20),
+           host_time_ms(lambda: K.curve_madd_valid_plain(
+               group, acc_big, table, tinf, sc_big, 1)),
+           2 * 4 * kq * 32 * big + 4 * big + 2 * kq * 32 * 8192 + 8192,
+           needed * (8 * fq_mul + 2 * fq_sqr))
+
+
 @contextlib.contextmanager
 def plain_fr_kernels():
     """Route the NTT / quotient through the plain versions of the Fr
     kernels (for the comparison on the card only)."""
     from ultragroth_tpu_torch.ops import kernels as K
-    saved = K.fr_mont_mul, K.fr_butterfly
-    K.fr_mont_mul, K.fr_butterfly = K.fr_mont_mul_plain, K.fr_butterfly_plain
+    saved = K.fr_mont_mul, K.fr_butterfly, K.fr_cg_ntt
+    K.fr_mont_mul, K.fr_butterfly, K.fr_cg_ntt = (
+        K.fr_mont_mul_plain, K.fr_butterfly_plain, K.fr_cg_ntt_plain)
     try:
         yield
     finally:
-        K.fr_mont_mul, K.fr_butterfly = saved
+        K.fr_mont_mul, K.fr_butterfly, K.fr_cg_ntt = saved
+
+
+def ultragroth_small(dev, r1cs, host_setup):
+    """Device set-ups on the card, byte for byte against the host set-ups;
+    a small UltraGroth proof on the card against the CPU, verified, and
+    refused after a tampered public input or round commitment."""
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.io.wtns import parse_wtns
+    from ultragroth_tpu_torch.io.zkey import parse_ultragroth_zkey
+    from ultragroth_tpu_torch.oracle import curve as oc
+    from ultragroth_tpu_torch.protocol import ultragroth as ug
+    from ultragroth_tpu_torch.protocol.prover import TorchUltraGrothProver
+    from ultragroth_tpu_torch.testkit.circuits import LookupCircuit
+    from ultragroth_tpu_torch.testkit.dsetup import (groth16_setup_fast,
+                                                     ultragroth_setup_fast)
+    from ultragroth_tpu_torch.testkit.setup import ultragroth_setup
+
+    def same(a, b):
+        return (a.zkey_bytes == b.zkey_bytes and a.vk_json == b.vk_json
+                and a.taus == b.taus)
+
+    fast = groth16_setup_fast(r1cs, seed=7)
+    check(same(fast, host_setup), "groth16_setup_fast on the card differs "
+          "from the host set-up")
+    print(f"  groth16_setup_fast 2^10 == host set-up; seconds "
+          f"{json.dumps(fast.seconds)}", flush=True)
+    chunks, table = UG_SMALL
+    circ = LookupCircuit(np.random.default_rng(17).integers(0, table,
+                                                            size=chunks), table)
+    args = (circ.r1cs, circ.round_indexes, circ.final_indexes, circ.rand_indx)
+    host = ultragroth_setup(*args, seed=9)
+    fast = ultragroth_setup_fast(*args, seed=9)
+    check(same(fast, host), "ultragroth_setup_fast on the card differs from "
+          "the host set-up")
+    print(f"  ultragroth_setup_fast ({chunks} chunks, T = {table}) == host "
+          "set-up", flush=True)
+
+    zk = parse_ultragroth_zkey(np.frombuffer(host.zkey_bytes, np.uint8))
+    wt = parse_wtns(np.frombuffer(circ.uwtns_bytes(), np.uint8))
+    pins = dict(r0=R0_BLIND, r=R_BLIND, s=S_BLIND)
+    proof, w_final = TorchUltraGrothProver(zk).prove(wt.values, wt, **pins)
+    cpu_proof, cpu_w = TorchUltraGrothProver(zk, device="cpu").prove(
+        wt.values, wt, **pins)
+    check(proof.to_json() == cpu_proof.to_json() and w_final == cpu_w,
+          "the card's UltraGroth proof differs from the port's CPU proof")
+    vk = ug.UltraGrothVerificationKey.from_json_dict(host.vk_json)
+    pub = ug.public_signals(w_final, zk.n_public, zk.rand_indx)
+    check(ug.verify(proof, pub, vk), "small UltraGroth proof does not verify")
+    check(not ug.verify(proof, [(pub[0] + 1) % R], vk),
+          "tampered public input verifies")
+    bad = ug.UltraGrothProof(proof.pi_a, proof.pi_b, proof.pi_f,
+                             oc.g1_add(proof.pi_r, oc.G1))
+    check(not ug.verify(bad, pub, vk), "tampered round commitment verifies")
+
+
+def ultragroth_full_width(dev, drive):
+    """The lookup circuit at domain 2^20: key from the device set-up on the
+    card, the first prove, the 5-pairing check, the challenge and the
+    lookup signals against the oracle, the steady prove."""
+    from ultragroth_tpu_torch.io.fieldenc import array_to_ints
+    from ultragroth_tpu_torch.io.wtns import parse_wtns
+    from ultragroth_tpu_torch.io.zkey import parse_ultragroth_zkey
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.protocol import ultragroth as ug
+    from ultragroth_tpu_torch.protocol.prover import TorchUltraGrothProver
+    from ultragroth_tpu_torch.testkit.circuits import LookupCircuit
+    from ultragroth_tpu_torch.testkit.dsetup import ultragroth_setup_fast
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    circ = LookupCircuit(rng.integers(0, UG_TABLE, size=UG_CHUNKS), UG_TABLE)
+    wt = parse_wtns(np.frombuffer(circ.uwtns_bytes(), np.uint8))
+    rows = len(circ.r1cs.rows)
+    print(f"  circuit: {UG_CHUNKS} chunks, T = {UG_TABLE}, {rows} constraints, "
+          f"n_vars {circ.r1cs.n_vars}; {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    check((1 << LOG_N) // 2 < rows <= 1 << LOG_N, f"domain is not 2^{LOG_N}")
+
+    def setup_and_prove():
+        t0 = time.perf_counter()
+        st = ultragroth_setup_fast(circ.r1cs, circ.round_indexes,
+                                   circ.final_indexes, circ.rand_indx, seed=9)
+        print(f"  device set-up {time.perf_counter() - t0:.2f} s, by part "
+              f"{json.dumps(st.seconds)}; zkey {len(st.zkey_bytes)} bytes",
+              flush=True)
+        t0 = time.perf_counter()
+        zk = parse_ultragroth_zkey(np.frombuffer(st.zkey_bytes, np.uint8))
+        prover = TorchUltraGrothProver(zk)
+        torch.cuda.synchronize()
+        print(f"  parse + prover set-up {time.perf_counter() - t0:.2f} s; "
+              f"MSM sizes: round {len(zk.round_indexes)} (c = "
+              f"{prover.c_round}), final C {len(zk.final_indexes)} (c = "
+              f"{prover.c_final}), A/B1/B2 {zk.n_vars} (c = {prover.c_vars}),"
+              f" H {zk.domain_size} (c = {prover.c_h})", flush=True)
+        t0 = time.perf_counter()
+        proof, w_final = prover.prove(wt.values, wt)
+        torch.cuda.synchronize()
+        print(f"  first prove {time.perf_counter() - t0:.3f} s "
+              f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
+        return st, zk, prover, proof, w_final
+
+    st, zk, prover, proof, w_final = drive("ultragroth_2^20", setup_and_prove)
+
+    t0 = time.perf_counter()
+    vk = ug.UltraGrothVerificationKey.from_json_dict(st.vk_json)
+    pub = ug.public_signals(w_final, zk.n_public, zk.rand_indx)
+    check(ug.verify(proof, pub, vk), "the 2^20 UltraGroth proof does not verify")
+    check(not ug.verify(proof, [(pub[0] + 1) % R], vk),
+          "a tampered public input verifies at 2^20")
+    rand = ug.derive_challenge(proof.pi_r)
+    check(rand == w_final[zk.rand_indx],
+          "the challenge signal is not Keccak(pi_r) mod r")
+    print(f"  5-pairing verify: accepts, refuses a tampered public input; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    w0 = array_to_ints(wt.values)
+    ug.compute_lookup(w0, wt.chunks, wt.frequencies, wt.wtns_indxs,
+                      wt.push_indxs, rand)
+    check(w0 == w_final, "the final witness differs from the oracle's "
+          "compute_lookup")
+    print(f"  lookup signals == oracle compute_lookup ({len(wt.push_indxs)} "
+          f"pushed); {time.perf_counter() - t0:.2f} s", flush=True)
+
+    t0 = time.perf_counter()
+    drive("ultragroth_2^20_steady", lambda: prover.prove(wt.values, wt))
+    print(f"  steady prove {time.perf_counter() - t0:.3f} s "
+          f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
 
 
 def main() -> int:
@@ -438,8 +656,21 @@ def main() -> int:
     from ultragroth_tpu_torch.protocol.prover import (TorchGroth16Prover,
                                                      normalize_outputs)
     from ultragroth_tpu_torch.testkit.circuits import square_chain_circuit
+    from ultragroth_tpu_torch.testkit.dsetup import groth16_setup_fast
     from ultragroth_tpu_torch.testkit.setup import groth16_setup
     from ultragroth_tpu_torch.trace import Tracer
+
+    paths = {}          # driven path -> its launch counts
+
+    def drive(name, fn):
+        """Run one driven path with the launch counts set to 0 just before
+        it and read just after."""
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        paths[name] = K.launch_counts()
+        print(f"  launches [{name}] {json.dumps(paths[name])}", flush=True)
+        return out
 
     with phase("0_device_probe"):
         smi = subprocess.run(
@@ -463,6 +694,7 @@ def main() -> int:
 
     with phase("2_kernels_vs_plain"):
         metrics = kernel_checks(dev)
+        torch.cuda.empty_cache()
 
     with phase("3_small_verifiable_prove"):
         r1cs, w_small = square_chain_circuit(SMALL_CONSTRAINTS, seed=5)
@@ -494,15 +726,13 @@ def main() -> int:
               f"NTT domain tables {t1 - t0:.2f} s (c = {prover.c_vars})",
               flush=True)
 
-        K.reset_launch_counts()
+        check(prover.ntt_mode == "fast", "the card's default NTT mode is "
+              f"{prover.ntt_mode}, not fast")
         t0 = time.perf_counter()
-        prover.prove(witness)
-        torch.cuda.synchronize()
+        drive("groth16_2^20", lambda: prover.prove(witness))
         first_s = time.perf_counter() - t0
-        launches = K.launch_counts()
         print(f"  first prove {first_s:.3f} s", flush=True)
         print(f"  last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
-        print(f"  launches {json.dumps(launches)}", flush=True)
 
         outs = prover.msm_outputs(witness, Tracer(dev))
         (pa, pb1, pc, ph), pb2 = normalize_outputs(
@@ -512,11 +742,19 @@ def main() -> int:
             K.fr_mont_mul(lb.words_to_planes(witness, dev), prover._r2),
             prover.coef_val_mont, prover.coef_m, prover.coef_c,
             prover.coef_s, zk.domain_size)
-        h = quotient_scalars(a, b, prover.domain)
+        h = quotient_scalars(a, b, prover.domain)             # fast mode
+        h_base = quotient_scalars(a, b, prover.domain, "base")
         with plain_fr_kernels():
             h_plain = quotient_scalars(a, b, prover.domain)
+        check(torch.equal(h, h_base),
+              "the fast quotient differs from the base quotient")
         check(torch.equal(h, h_plain),
               "quotient_scalars on the card differs from its plain version")
+        q_ms = {mode: cuda_time_ms(lambda: quotient_scalars(
+            a, b, prover.domain, mode), 5) for mode in ("fast", "base")}
+        print(f"  quotient ms: fast {q_ms['fast']:.3f} base "
+              f"{q_ms['base']:.3f} (h equal in both modes and the plain "
+              "versions')", flush=True)
         h_ints = lb.planes_to_ints(h)
         expect = {
             "a": oc.g1_mul(oc.G1, known_log_sum(w_ints, specs["a"])),
@@ -532,18 +770,44 @@ def main() -> int:
         print("  five MSM outputs equal their known-log values", flush=True)
 
         t0 = time.perf_counter()
-        prover.prove(witness)
+        proof_fast = prover.prove(witness, r=R_BLIND, s=S_BLIND)
         torch.cuda.synchronize()
         print(f"  steady prove {time.perf_counter() - t0:.3f} s "
               f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
+        base_prover = TorchGroth16Prover(zk, ntt_mode="base")
+        proof_base = drive("groth16_2^20_base", lambda: base_prover.prove(
+            witness, r=R_BLIND, s=S_BLIND))
+        print(f"  base-mode prove last_phase_ms "
+              f"{json.dumps(base_prover.last_phase_ms)}", flush=True)
+        check(proof_base.to_json() == proof_fast.to_json(),
+              "the base-mode proof differs from the fast-mode proof")
+        del prover, base_prover, zk
+        torch.cuda.empty_cache()
 
-    with phase("5_kernel_launches"):
-        missing = [k for k, v in launches.items() if v == 0]
-        check(not missing, f"kernels never launched on the main path: {missing}")
+    with phase("5_ultragroth_small"):
+        ultragroth_small(dev, r1cs, setup)
+
+    with phase("6_ultragroth_full_width"):
+        ultragroth_full_width(dev, drive)
+
+    with phase("7_kernel_launches"):
+        total = {k: sum(p[k] for p in paths.values()) for k in K.KERNELS}
+        need = {"groth16_2^20": [k for k in K.KERNELS if k not in (
+                    "fr_butterfly", "g1_madd_valid", "g2_madd_valid")],
+                "groth16_2^20_base": ["fr_butterfly"],
+                "ultragroth_2^20": [k for k in K.KERNELS
+                                    if k != "fr_butterfly"]}
+        for name, kernels in need.items():
+            missing = [k for k in kernels if paths[name][k] == 0]
+            check(not missing, f"kernels never launched on {name}: {missing}")
+        missing = [k for k, v in total.items() if v == 0]
+        check(not missing, f"kernels never launched: {missing}")
         rows = []
         for name, (source, replaces) in K.KERNELS.items():
             rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, "launches": launches[name],
+                         "replaces": replaces, "launches": total[name],
+                         "launches_by_path": {p: c[name]
+                                              for p, c in paths.items()},
                          **metrics[name]})
 
     print(json.dumps({"kernels": rows}), flush=True)

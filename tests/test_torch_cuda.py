@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain version on
-the same CUDA tensors, and a small prove on the card against the port's
-CPU prove.  Marked `cuda`; skipped where no CUDA device is present.
+the same inputs, and small Groth16 and UltraGroth proves on the card
+against the port's CPU proves.  Marked `cuda`; skipped where no CUDA
+device is present.
 
 Imports no JAX, so it runs where only the port is installed:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
@@ -12,15 +13,22 @@ import pytest
 import torch
 
 from ultragroth_tpu_torch.constants import FR_MODULUS as R
-from ultragroth_tpu_torch.io.zkey import parse_groth16_zkey
+from ultragroth_tpu_torch.io.wtns import parse_wtns
+from ultragroth_tpu_torch.io.zkey import (parse_groth16_zkey,
+                                          parse_ultragroth_zkey)
 from ultragroth_tpu_torch.ops import kernels as K
 from ultragroth_tpu_torch.ops import limbs as lb
 from ultragroth_tpu_torch.ops.curve import curve_ops
 from ultragroth_tpu_torch.ops.field import fq
+from ultragroth_tpu_torch.ops.ntt import Domain
 from ultragroth_tpu_torch.oracle import curve as oc
-from ultragroth_tpu_torch.protocol.prover import TorchGroth16Prover
-from ultragroth_tpu_torch.testkit.circuits import square_chain_circuit
-from ultragroth_tpu_torch.testkit.setup import groth16_setup
+from ultragroth_tpu_torch.protocol import ultragroth as ug
+from ultragroth_tpu_torch.protocol.prover import (TorchGroth16Prover,
+                                                 TorchUltraGrothProver)
+from ultragroth_tpu_torch.testkit.circuits import (LookupCircuit,
+                                                  square_chain_circuit)
+from ultragroth_tpu_torch.testkit.dsetup import _fb_table
+from ultragroth_tpu_torch.testkit.setup import groth16_setup, ultragroth_setup
 
 pytestmark = pytest.mark.cuda
 N = 256
@@ -100,6 +108,43 @@ def test_fr_kernels_match_plain_on_card(dev):
         assert torch.equal(lb.widen(k.cpu()), K.fr_butterfly_plain(a.clone(), tw))
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_madd_valid_matches_plain_on_card(dev, group):
+    ops = curve_ops(group)
+    table, tinf = _fb_table(group, dev)
+    g = torch.Generator().manual_seed(63)
+    sc = torch.randint(0, 1 << 32, (8, N), generator=g, dtype=torch.int64)
+    sc[1, :8] &= ~0xFF00                       # byte 5 == 0: Q at infinity
+    acc = ops.inf_xyzz((N,), dev, torch.int32).contiguous()
+    for w in range(5):
+        acc = K.curve_madd_valid(group, acc, table, tinf, _cu(sc, dev), w)
+    acc = lb.widen(acc.cpu())
+    qx, qy, _ = K.fixed_base_gather_plain(lb.widen(table.cpu()), tinf.cpu(),
+                                          sc, 5)
+    q = ops.affine_to_xyzz(qx, qy, torch.zeros(N, dtype=torch.bool))
+    acc[..., 8:10] = ops.inf_xyzz((2,))                 # P == inf
+    acc[..., 10:12] = q[..., 10:12]                     # P == Q
+    acc[..., 12:14] = ops.neg(q[..., 12:14])            # P == -Q
+    k = K.curve_madd_valid(group, _cu(acc, dev), table, tinf, _cu(sc, dev), 5)
+    p = K.curve_madd_valid_plain(group, acc, lb.widen(table.cpu()),
+                                 tinf.cpu(), sc, 5)
+    assert torch.equal(lb.widen(k.cpu()), p)
+    assert bool(ops.is_inf(p[..., 12:14]).all())
+
+
+@pytest.mark.parametrize("log_m,cb", [(10, 4), (4, 37), (1, 1)])
+def test_cg_ntt_matches_plain_on_card(dev, log_m, cb):
+    g = torch.Generator().manual_seed(64)
+    x = torch.randint(0, 1 << 32, (8, (1 << log_m) * cb), generator=g,
+                      dtype=torch.int64)
+    x[7] %= lb.int_to_limbs(R)[7]
+    x = x.reshape(8, 1 << log_m, cb)
+    for inverse in (False, True):
+        tw = Domain(log_m, "cpu").cg_twiddles(log_m, inverse)
+        k = K.fr_cg_ntt(_cu(x, dev), _cu(tw, dev))
+        assert torch.equal(lb.widen(k.cpu()), K.fr_cg_ntt_plain(x, tw))
+
+
 def test_wrapper_refuses_cpu_dtype_on_card(dev):
     """On a CUDA tensor a wrapper launches or raises: no plain fallback."""
     a = torch.zeros(8, 4, dtype=torch.int64, device=dev)
@@ -113,6 +158,30 @@ def test_small_prove_on_card_matches_cpu(dev):
     zk = parse_groth16_zkey(np.frombuffer(setup.zkey_bytes, np.uint8))
     K.reset_launch_counts()
     on_card = TorchGroth16Prover(zk).prove(w, r=11, s=22)
-    assert all(v > 0 for v in K.launch_counts().values())
+    # the card's default NTT mode is fast: no per-stage butterflies; the
+    # fixed-base madd belongs to the device set-up
+    idle = {"fr_butterfly", "g1_madd_valid", "g2_madd_valid"}
+    assert {k for k, v in K.launch_counts().items() if v == 0} == idle
     on_cpu = TorchGroth16Prover(zk, device="cpu").prove(w, r=11, s=22)
     assert on_card.to_json() == on_cpu.to_json()
+    base = TorchGroth16Prover(zk, ntt_mode="base").prove(w, r=11, s=22)
+    assert base.to_json() == on_cpu.to_json()
+
+
+def test_small_ultragroth_prove_on_card_matches_cpu(dev):
+    circ = LookupCircuit(np.random.default_rng(17).integers(0, 16, size=64),
+                         16)
+    setup = ultragroth_setup(circ.r1cs, circ.round_indexes,
+                             circ.final_indexes, circ.rand_indx, seed=9)
+    zk = parse_ultragroth_zkey(np.frombuffer(setup.zkey_bytes, np.uint8))
+    wt = parse_wtns(np.frombuffer(circ.uwtns_bytes(), np.uint8))
+    pins = dict(r0=33, r=11, s=22)
+    K.reset_launch_counts()
+    proof, w_final = TorchUltraGrothProver(zk).prove(wt.values, wt, **pins)
+    assert K.launch_counts()["fr_cg_ntt"] > 0
+    cpu_proof, cpu_w = TorchUltraGrothProver(zk, device="cpu").prove(
+        wt.values, wt, **pins)
+    assert proof.to_json() == cpu_proof.to_json() and w_final == cpu_w
+    vk = ug.UltraGrothVerificationKey.from_json_dict(setup.vk_json)
+    assert ug.verify(proof, ug.public_signals(w_final, zk.n_public,
+                                              zk.rand_indx), vk)

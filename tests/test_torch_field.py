@@ -136,10 +136,14 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['ultragroth_tpu'] = None\n"
         "import ultragroth_tpu_torch\n"
-        "from ultragroth_tpu_torch.protocol.prover import TorchGroth16Prover\n"
+        "from ultragroth_tpu_torch.protocol.prover import (\n"
+        "    TorchGroth16Prover, TorchUltraGrothProver)\n"
+        "from ultragroth_tpu_torch.protocol import ultragroth\n"
         "from ultragroth_tpu_torch.ops import kernels, msm, ntt, _build\n"
-        "from ultragroth_tpu_torch import convert, trace\n"
-        "from ultragroth_tpu_torch.testkit import setup, circuits\n"
+        "from ultragroth_tpu_torch.ops.ntt import ntt_fast, ntt_mode\n"
+        "from ultragroth_tpu_torch import convert, keccak, trace\n"
+        "from ultragroth_tpu_torch.testkit import setup, circuits, dsetup\n"
+        "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or\n"
         "               m.startswith('ultragroth_tpu.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"

@@ -1,8 +1,9 @@
-"""PyTorch port: each of the six kernels' plain versions against the JAX
+"""PyTorch port: each of the kernels' plain versions against the JAX
 package's kernel entries (`ultragroth_tpu.ops.kernels`, run on the CPU as
 its own tests run them), G1 and G2, with infinity on either side, P == Q
 and P == -Q; and the kernels' own lane bodies (csrc/*.cuh, built for the
-host with g++) against the plain versions.
+host with g++) against the plain versions.  (`fr_cg_ntt`'s network is
+held against the JAX package in tests/test_torch_ntt_fast.py.)
 
 Curve outputs are compared after to_affine (the xyzz representative of a
 point is not unique); flags exactly.  Widths stay at 16 lanes.
@@ -48,6 +49,48 @@ def _case(group):
     neg[1], neg[2] = False, True       # lane 2 adds -Q to acc = Q
     valid = torch.tensor([i not in (3, 8) for i in range(N)])
     return acc, table, neg, valid
+
+
+def _fixed_base_case(group):
+    """curve_madd_valid's inputs at window w = 1 of a [2, *elem, 512]
+    table (entry 256 + d = point d % N, entry 256 at infinity), with the
+    edge cases on fixed lanes: acc at infinity (0), acc == Q (1),
+    acc == -Q (2), Q at infinity (3), both at infinity (4)."""
+    ops = curve_ops(group)
+    pts = random_points(group, 2 * N, seed=13 if group == "g1" else 14)
+    pts_tab, _ = (g1_table if group == "g1" else g2_table)(pts[:N])
+    base, _ = (g1_table if group == "g1" else g2_table)(pts[N:])
+    digit = torch.tensor([5, 6, 7, 0, 0] + list(range(9, 9 + N - 5)))
+    ent = torch.arange(512)
+    table = pts_tab[..., ent % N].contiguous()
+    tinf = ent == 256
+    scalars = lb.ints_to_planes([int(d) << 8 for d in digit])
+    no_inf = torch.zeros(N, dtype=torch.bool)
+    acc = ops.dbl(ops.affine_to_xyzz(base[0], base[1], no_inf))
+    q = ops.affine_to_xyzz(table[0][..., 256 + digit], table[1][..., 256 + digit],
+                           no_inf)
+    acc[..., 0] = ops.inf_xyzz((1,))[..., 0]
+    acc[..., 1] = q[..., 1]
+    acc[..., 2] = ops.neg(q[..., 2:3])[..., 0]
+    acc[..., 4] = ops.inf_xyzz((1,))[..., 0]
+    return acc, table, tinf, scalars
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_madd_valid_matches_jax(group):
+    acc, table, tinf, scalars = _fixed_base_case(group)
+    out = K.curve_madd_valid(group, acc, table, tinf, scalars, 1)
+    qx, qy, qinf = K.fixed_base_gather_plain(table, tinf, scalars, 1)
+    assert qinf.tolist() == [False] * 3 + [True, True] + [False] * (N - 5)
+    jout = jk.curve_madd_valid(group)(
+        xyzz_to_jax(group, acc), elem_to_jax(group, qx),
+        elem_to_jax(group, qy), jnp.asarray(qinf.numpy()))
+    got = affine_points(group, out)
+    assert got == affine_points(group, xyzz_from_jax(group, jout))
+    assert got[2] is None and got[4] is None          # Q + (-Q), inf + inf
+    assert got[3] == affine_points(group, acc[..., 3:4])[0]
+    q = curve_ops(group).affine_to_xyzz(qx, qy, qinf)
+    assert got[0] == affine_points(group, q[..., :1])[0]      # inf + Q = Q
 
 
 def _port_gather_args(neg, valid):
@@ -203,6 +246,35 @@ def test_curve_lane_bodies_match_plain(host_lib, group):
         group, acc[..., :5].contiguous(), 3)))
 
 
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_madd_valid_lane_body_matches_plain(host_lib, group):
+    acc, table, tinf, scalars = _fixed_base_case(group)
+    A = _Args()
+    out = np.zeros_like(A.u32(acc))
+    tinf_u = np.ascontiguousarray(tinf.numpy().astype(np.uint8))
+    getattr(host_lib, f"ugh_{group}_madd_valid")(
+        A.p(A.u32(acc)), A.p(out), A.p(A.u32(table)), A.p(tinf_u),
+        ctypes.c_int64(table.shape[-1]), A.p(A.u32(scalars)), ctypes.c_int(1),
+        ctypes.c_int64(N))
+    np.testing.assert_array_equal(out, A.u32(K.curve_madd_valid_plain(
+        group, acc, table, tinf, scalars, 1)))
+
+
+@pytest.mark.parametrize("log_m,cols", [(1, 3), (3, 1), (4, 5)])
+def test_cg_stage_body_matches_plain(host_lib, log_m, cols):
+    """One constant-geometry stage of fr_cg_ntt, the g++ build of its
+    butterfly body, against one stage of the plain network."""
+    m = 1 << log_m
+    A = _Args()
+    x = lb.ints_to_planes(sample(R, m * cols, seed=40 + log_m)).reshape(
+        8, m, cols)
+    tw = lb.ints_to_planes(sample(R, m // 2, seed=50 + log_m))
+    out = np.zeros((8, m, cols), np.uint32)
+    host_lib.ugh_fr_cg_stage(A.p(A.u32(x)), A.p(out), A.p(A.u32(tw)),
+                             ctypes.c_int64(m), ctypes.c_int64(cols))
+    np.testing.assert_array_equal(out, A.u32(K.cg_stages_plain(x, tw[None])))
+
+
 def test_fr_lane_bodies_match_plain(host_lib):
     A = _Args()
     a = lb.ints_to_planes(sample(R, 4 * N, seed=31))
@@ -229,6 +301,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):      # a stage must tile the array
         K.fr_butterfly(torch.zeros(8, 12, dtype=torch.int64),
                        torch.zeros(8, 8, dtype=torch.int64))
+    with pytest.raises(ValueError):      # a column above the kernel's cap
+        K.fr_cg_ntt(torch.zeros(8, 2048, 1, dtype=torch.int64),
+                    torch.zeros(11, 8, 1024, dtype=torch.int64))
+    with pytest.raises(ValueError):      # the fixed base has 32 windows
+        K.curve_madd_valid("g1", torch.zeros(4, 8, 1, dtype=torch.int64),
+                           torch.zeros(2, 8, 8192, dtype=torch.int64),
+                           torch.zeros(8192, dtype=torch.bool),
+                           torch.zeros(8, 1, dtype=torch.int64), 32)
 
 
 def test_plain_versions_count_no_launches():

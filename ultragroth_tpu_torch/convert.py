@@ -3,9 +3,10 @@
 The JAX package holds field elements as 16 limbs of 16 bits in u32 planes
 [16, *batch]; the port as 8 limbs of 32 bits, [8, *batch] (`ops/limbs.py`).
 Both are plain bit shuffles of the same integers.  `prover_state_from_jax`
-turns the JAX prover's numpy state (what its `g1_section_to_planes` /
-`g2_section_to_planes` give, plus the coefficient arrays) into the tensors
-`TorchGroth16Prover` keeps, so both packages can compute on one key.
+turns the JAX provers' numpy state (what their `g1_section_to_planes` /
+`g2_section_to_planes` give, plus the coefficient and index arrays) into
+the tensors `TorchGroth16Prover` and `TorchUltraGrothProver` keep, so both
+packages can compute on one key.
 """
 from __future__ import annotations
 
@@ -55,17 +56,30 @@ def g2_points_from_jax(x, y, inf, device="cpu"):
             torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
 
 
+G1_SECTIONS = ("points_a", "points_b1", "points_c", "points_h",
+               "round_points_c", "final_points_c")
+INT_ARRAYS = ("coef_m", "coef_c", "coef_s", "round_indexes", "final_indexes")
+
+
 def prover_state_from_jax(state: dict, device="cpu") -> dict:
     """The JAX prover's state -> the port prover's tensors.
 
-    state: points_a, points_b1, points_c, points_h as (x, y, inf);
-    points_b2 as ((x0, x1), (y0, y1), inf); coef_val_mont [16, nCoefs];
-    coef_m, coef_c, coef_s int arrays (numpy or anything np.asarray takes).
-    Returns the same keys in the layout of `TorchGroth16Prover`."""
-    out = {k: g1_points_from_jax(*state[k], device=device)
-           for k in ("points_a", "points_b1", "points_c", "points_h")}
-    out["points_b2"] = g2_points_from_jax(*state["points_b2"], device=device)
-    out["coef_val_mont"] = to_torch(state["coef_val_mont"], device)
-    for k in ("coef_m", "coef_c", "coef_s"):
-        out[k] = torch.from_numpy(np.asarray(state[k], np.int64)).to(device)
+    state: any of the G1 sections (points_a, points_b1, points_h, and
+    points_c for Groth16 or round_points_c, final_points_c for UltraGroth)
+    as (x, y, inf); points_b2 as ((x0, x1), (y0, y1), inf); coef_val_mont
+    [16, nCoefs]; the int arrays coef_m, coef_c, coef_s and, for
+    UltraGroth, round_indexes, final_indexes (numpy or anything np.asarray
+    takes).  Returns the same keys in the layout of the port's provers."""
+    out = {}
+    for k, v in state.items():
+        if k in G1_SECTIONS:
+            out[k] = g1_points_from_jax(*v, device=device)
+        elif k == "points_b2":
+            out[k] = g2_points_from_jax(*v, device=device)
+        elif k == "coef_val_mont":
+            out[k] = to_torch(v, device)
+        elif k in INT_ARRAYS:
+            out[k] = torch.from_numpy(np.asarray(v, np.int64)).to(device)
+        else:
+            raise KeyError(f"prover_state_from_jax: unknown key {k!r}")
     return out

@@ -179,6 +179,25 @@ UG_HD void lane_madd_signed(const uint32_t* acc, uint32_t* out, const uint32_t* 
   store_xyzz<F>(out, n, i, madd_unified<F>(a, qx, qy, !valid));
 }
 
+// curve_madd_valid, fused with the fixed-base gather of the device set-up
+// (ultragroth_tpu/testkit/dsetup.py:90-121): step w of the 8-bit windowed
+// fixed-base multiplication.  Lane i takes byte w of its standard-form
+// scalar (limb w/4, bits 8*(w%4)..), entry e = 256*w + byte of the 32 x 256
+// window table, and adds table point e (infinity where tinf[e]) with the
+// complete mixed add.
+template <class F>
+UG_HD void lane_madd_valid(const uint32_t* acc, uint32_t* out, const uint32_t* table,
+                           const uint8_t* tinf, int64_t T, const uint32_t* scalars,
+                           int w, int64_t n, int64_t i) {
+  xyzz<F> a = load_xyzz<F>(acc, n, i);
+  const uint32_t d = (scalars[(int64_t)(w >> 2) * n + i] >> (8 * (w & 3))) & 0xFFu;
+  const int64_t e = 256 * (int64_t)w + d;
+  typename F::E qx, qy;
+  load_elem(table, T, e, 0, qx);
+  load_elem(table, T, e, 1, qy);
+  store_xyzz<F>(out, n, i, madd_unified<F>(a, qx, qy, tinf[e] != 0));
+}
+
 // curve_add_where: out = ok ? a + b : a (ok == nullptr: every lane)
 template <class F>
 UG_HD void lane_add_where(const uint32_t* a, const uint32_t* b, const uint8_t* ok,
@@ -207,6 +226,29 @@ UG_HD void lane_butterfly(uint32_t* a, const uint32_t* tw, int64_t n, int64_t ha
   fe t = Fr::mul(load(a, n, iw, 0), load(tw, half, j, 0));
   store(a, n, iu, 0, Fr::add(u, t));
   store(a, n, iw, 0, Fr::sub(u, t));
+}
+
+// fr_cg_ntt, one constant-geometry (Pease) stage.  The planes [8][n] hold
+// `cols` columns of m points, element (j, c) at j*cols + c (n = m*cols).
+// Butterfly b (i = b / cols, c = b % cols) of column c:
+//   out[2i] = a[i] + tw[i]*a[i + m/2],  out[2i+1] = a[i] - tw[i]*a[i + m/2]
+// with tw the stage's [8][m/2] twiddles.  Split into the read-and-compute
+// half and the store half so that a kernel can run the stage in place with
+// a barrier between them.
+UG_HD void cg_butterfly(const uint32_t* a, const uint32_t* tw, int64_t n, int64_t m,
+                        int64_t cols, int64_t b, fe& hi, fe& lo) {
+  const int64_t i = b / cols, c = b - i * cols;
+  const fe u = load(a, n, i * cols + c, 0);
+  const fe t = Fr::mul(load(a, n, (i + m / 2) * cols + c, 0), load(tw, m / 2, i, 0));
+  hi = Fr::add(u, t);
+  lo = Fr::sub(u, t);
+}
+
+UG_HD void cg_store(uint32_t* a, int64_t n, int64_t cols, int64_t b, const fe& hi,
+                    const fe& lo) {
+  const int64_t i = b / cols, c = b - i * cols;
+  store(a, n, 2 * i * cols + c, 0, hi);
+  store(a, n, (2 * i + 1) * cols + c, 0, lo);
 }
 
 // fr_mont_mul: out = a * b * R^-1, b broadcast over lanes when b_n == 1

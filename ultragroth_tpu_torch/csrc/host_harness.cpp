@@ -42,6 +42,19 @@
     return 0;                                                                 \
   }
 
+#define UG_HOST_MADD_VALID(G, F)                                              \
+  extern "C" int ugh_##G##_madd_valid(const void* acc, void* out,             \
+      const void* table, const void* tinf, int64_t T, const void* scalars,    \
+      int w, int64_t n) {                                                     \
+    for (int64_t i = 0; i < n; i++)                                           \
+      ug::lane_madd_valid<F>((const uint32_t*)acc, (uint32_t*)out,            \
+          (const uint32_t*)table, (const uint8_t*)tinf, T,                    \
+          (const uint32_t*)scalars, w, n, i);                                 \
+    return 0;                                                                 \
+  }
+
+UG_HOST_MADD_VALID(g1, ug::Fq)
+UG_HOST_MADD_VALID(g2, ug::Fq2)
 UG_HOST_CURVE(g1, ug::Fq)
 UG_HOST_CURVE(g2, ug::Fq2)
 
@@ -57,5 +70,18 @@ extern "C" int ugh_fr_butterfly(void* a, const void* tw, int64_t n,
                                 int64_t half) {
   for (int64_t i = 0; i < n / 2; i++)
     ug::lane_butterfly((uint32_t*)a, (const uint32_t*)tw, n, half, i);
+  return 0;
+}
+
+// one stage of fr_cg_ntt over [8][m][cols] planes, out of place
+extern "C" int ugh_fr_cg_stage(const void* in, void* out, const void* tw,
+                               int64_t m, int64_t cols) {
+  const int64_t n = m * cols;
+  for (int64_t b = 0; b < n / 2; b++) {
+    ug::fe hi, lo;
+    ug::cg_butterfly((const uint32_t*)in, (const uint32_t*)tw, n, m, cols, b,
+                     hi, lo);
+    ug::cg_store((uint32_t*)out, n, cols, b, hi, lo);
+  }
   return 0;
 }

@@ -100,6 +100,7 @@ _I32 = ctypes.c_int32
 _SIGNATURES = {
     "ug_fr_mont_mul": [_P, _P, _P, _I64, _I64, _P],
     "ug_fr_butterfly": [_P, _P, _I64, _I64, _P],
+    "ug_fr_cg_ntt": [_P, _P, _P, ctypes.c_int, _I64, _P],
 }
 for _g in ("g1", "g2"):
     _SIGNATURES.update({
@@ -107,6 +108,8 @@ for _g in ("g1", "g2"):
                                _P, _I64, _P],
         f"ug_{_g}_madd_signed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I32,
                                  _I64, _P],
+        f"ug_{_g}_madd_valid": [_P, _P, _P, _P, _I64, _P, ctypes.c_int,
+                                _I64, _P],
         f"ug_{_g}_add_where": [_P, _P, _P, _P, _I64, _P],
         f"ug_{_g}_horner": [_P, _I64, ctypes.c_int, _P],
     })

@@ -168,22 +168,26 @@ class FieldOps:
         inv = 0 if v == 0 else pow(v, -1, self.p) * self.r * self.r % self.p
         return self.const(inv, (1,), total.device, total.dtype)
 
-    def batch_inv_mont(self, a):
+    def batch_inv_mont(self, a, mul=None):
         """Montgomery-trick batch inversion (Montgomery domain): prefix and
         suffix products by log-depth scans, ONE inversion of the total.
-        inv(0) = 0 (zero lanes are masked to one for the scans)."""
+        inv(0) = 0 (zero lanes are masked to one for the scans).  `mul`
+        (default: this module's `mont_mul`) multiplies two contiguous
+        [8, n] arrays, or an [8, n] array by an [8, 1] one; the Fr callers
+        pass `kernels.fr_mont_mul`."""
+        mul = mul or self.mont_mul
         shape = a.shape
         flat = a.reshape(L, -1)
         n = flat.shape[1]
         zero = self.is_zero(flat)
         one = self.one_mont((n,), a.device, a.dtype)
         x = torch.where(zero, one, flat)
-        pre = _scan(self.mont_mul, x, reverse=False)
-        suf = _scan(self.mont_mul, x, reverse=True)
+        pre = _scan(mul, x, reverse=False)
+        suf = _scan(mul, x, reverse=True)
         tinv = self._host_inv_mont(pre[:, -1:])
         epre = torch.cat([one[:, :1], pre[:, :-1]], dim=1)
         esuf = torch.cat([suf[:, 1:], one[:, :1]], dim=1)
-        inv = self.mont_mul(self.mont_mul(epre, esuf), tinv.expand(L, n))
+        inv = mul(mul(epre, esuf), tinv)
         inv = torch.where(zero, torch.zeros_like(inv), inv)
         return inv.reshape(shape)
 
@@ -200,7 +204,8 @@ def _scan(mul, x, reverse: bool):
         x = x.flip(1)
     k = 1
     while k < n:
-        x = torch.cat([x[:, :k], mul(x[:, k:], x[:, :-k])], dim=1)
+        x = torch.cat([x[:, :k], mul(x[:, k:].contiguous(),
+                                     x[:, :-k].contiguous())], dim=1)
         k *= 2
     return x.flip(1) if reverse else x
 

@@ -1,5 +1,5 @@
-"""The port's kernel registry: six CUDA kernels, each with its plain
-PyTorch version beside it.
+"""The port's kernel registry: eight CUDA kernels (the curve ones in a G1
+and a G2 instance), each with its plain PyTorch version beside it.
 
 Twin of the JAX package's `ops/kernels.py`, which pairs each Pallas kernel
 with its rolled formula.  Here every wrapper looks at where its tensors
@@ -34,6 +34,8 @@ KERNELS = {
                     "ultragroth_tpu/ops/kernels.py:22"),
     "fr_butterfly": ("ultragroth_tpu_torch/csrc/fr_kernels.cu",
                      "ultragroth_tpu/ops/kernels.py:32"),
+    "fr_cg_ntt": ("ultragroth_tpu_torch/csrc/fr_kernels.cu",
+                  "ultragroth_tpu/ops/ntt.py:196"),
 }
 for _g in ("g1", "g2"):
     KERNELS.update({
@@ -41,6 +43,8 @@ for _g in ("g1", "g2"):
                             "ultragroth_tpu/ops/kernels.py:102"),
         f"{_g}_madd_signed": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                               "ultragroth_tpu/ops/kernels.py:77"),
+        f"{_g}_madd_valid": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                             "ultragroth_tpu/ops/kernels.py:64"),
         f"{_g}_add_where": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                             "ultragroth_tpu/ops/kernels.py:171"),
         f"{_g}_horner_scale": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
@@ -167,6 +171,67 @@ def fr_butterfly(a: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
     return a
 
 
+# -- fr_cg_ntt -------------------------------------------------------------------
+
+CG_MAX_LOG = 10
+"""The largest column `fr_cg_ntt` takes, 2^10 points: one column of 32 B
+elements fills the kernel's 32 KB of static shared memory (csrc/
+fr_kernels.cu).  `ops/ntt.py:_ntt_cols` splits larger transforms."""
+
+
+def bitrev_perm(log_n: int) -> torch.Tensor:
+    """[2^log_n] int64: the bit reversal of each index."""
+    n = 1 << log_n
+    idx = torch.arange(n, dtype=torch.int64)
+    rev = torch.zeros_like(idx)
+    for b in range(log_n):
+        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
+    return rev
+
+
+def cg_stages_plain(x, tws):
+    """The constant-geometry (Pease) network along axis 1 of x [8, M, CB]
+    Montgomery planes with twiddles tws [log_m, 8, M/2]; the output is in
+    BIT-REVERSED layout (the JAX package's `_cg_stages`).  Stage s:
+    out[2i] = a[i] + tw_s[i]*a[i + M/2], out[2i+1] = a[i] - tw_s[i]*a[i + M/2]."""
+    F = fr()
+    m = x.shape[1]
+    for s in range(tws.shape[0]):
+        u, w = x[:, :m // 2], x[:, m // 2:]
+        t = F.mont_mul(w, tws[s][:, :, None])
+        x = torch.stack([F.add(u, t), F.sub(u, t)], dim=2).reshape(x.shape)
+    return x
+
+
+def fr_cg_ntt_plain(x, tws):
+    log_m = tws.shape[0]
+    rev = bitrev_perm(log_m).to(x.device)
+    return cg_stages_plain(x, tws)[:, rev].contiguous()
+
+
+def fr_cg_ntt(x: torch.Tensor, tws: torch.Tensor) -> torch.Tensor:
+    """NTT of every column of x [8, M, CB] (M = 2^log_m points along axis
+    1, Montgomery planes, canonical) with the constant-geometry twiddles
+    tws [log_m, 8, M/2]: all log_m stages, then the bit reversal, so the
+    output [8, M, CB] is in NATURAL order.  1 <= log_m <= CG_MAX_LOG."""
+    log_m = tws.shape[0]
+    if not 1 <= log_m <= CG_MAX_LOG:
+        raise ValueError(f"fr_cg_ntt: 2^{log_m} points per column; the "
+                         f"kernel takes 2^1 .. 2^{CG_MAX_LOG}")
+    m = 1 << log_m
+    if x.dim() != 3 or x.shape[:2] != (8, m) or tws.shape[1:] != (8, m // 2):
+        raise ValueError(f"fr_cg_ntt: shapes {tuple(x.shape)}, "
+                         f"{tuple(tws.shape)}")
+    if not _on_cuda(x):
+        return fr_cg_ntt_plain(x, tws)
+    _check(x, torch.int32, name="x")
+    _check(tws, torch.int32, name="tws")
+    out = torch.empty_like(x)
+    _launch("fr_cg_ntt", "ug_fr_cg_ntt", x.data_ptr(), tws.data_ptr(),
+            out.data_ptr(), log_m, x.shape[2])
+    return out
+
+
 # -- curve kernels ------------------------------------------------------------------
 
 def gather_points_plain(group, table, orders, gidx, stride, cnt, t: int):
@@ -248,6 +313,54 @@ def curve_madd_signed(group: str, acc, table, orders, gidx, stride, cnt,
             acc.data_ptr(), out.data_ptr(), table.data_ptr(),
             table.shape[-1], orders.data_ptr(), gidx.data_ptr(),
             stride.data_ptr(), cnt.data_ptr(), t, n)
+    return out
+
+
+def fixed_base_gather_plain(table, tinf, scalars, w: int):
+    """Step w of the 8-bit windowed fixed-base multiplication: lane i takes
+    byte w of its standard-form scalar, entry 256*w + byte of the 32 x 256
+    window table.  Returns (qx, qy, q_inf)."""
+    limb = scalars[w // 4].long() & 0xFFFFFFFF
+    ent = 256 * w + ((limb >> (8 * (w % 4))) & 0xFF)
+    q = table[..., ent]
+    return q[0], q[1], tinf[ent]
+
+
+def curve_madd_valid_plain(group, acc, table, tinf, scalars, w: int):
+    ops = curve_ops(group)
+    qx, qy, q_inf = fixed_base_gather_plain(table, tinf, scalars, w)
+    return ops.madd_unified(acc, qx, qy, q_inf)
+
+
+def curve_madd_valid(group: str, acc, table, tinf, scalars, w: int,
+                     out=None):
+    """Complete unsigned mixed add acc + Q (Q at infinity where tinf says),
+    with the fixed-base gather fused: Q = table[256*w + byte w of the
+    lane's scalar].  acc xyzz [4, *elem, n]; table the affine window table
+    [2, *elem, 8192] (Montgomery, 32 windows x 256 digits), tinf [8192]
+    bool; scalars [8, n] standard form; 0 <= w < 32.  `out` may be `acc`."""
+    if not 0 <= w < 32:
+        raise ValueError(f"curve_madd_valid: window {w} not in [0, 32)")
+    if not _on_cuda(acc):
+        res = curve_madd_valid_plain(group, acc, table, tinf, scalars, w)
+        if out is not None:
+            out.copy_(res)
+            res = out
+        return res
+    n = acc.shape[-1]
+    e = _elem_shape(group)
+    _check(acc, torch.int32, (4, *e, n), "acc")
+    _check(table, torch.int32, name="table")
+    t = table.shape[-1]
+    if tuple(table.shape) != (2, *e, t) or t < 256 * (w + 1):
+        raise ValueError(f"table: shape {tuple(table.shape)}")
+    _check(tinf, torch.bool, (t,), "tinf")
+    _check(scalars, torch.int32, (8, n), "scalars")
+    out = torch.empty_like(acc) if out is None else out
+    _check(out, torch.int32, acc.shape, "out")
+    _launch(f"{group}_madd_valid", f"ug_{group}_madd_valid", acc.data_ptr(),
+            out.data_ptr(), table.data_ptr(), tinf.data_ptr(), t,
+            scalars.data_ptr(), w, n)
     return out
 
 

@@ -1,17 +1,29 @@
 """Fr NTT on limb planes + the Groth16 quotient (H) pipeline.
 
-The twin of the JAX package's `ops/ntt.py` in its `base` mode (the
-per-stage NTT, `ULTRAGROTH_NTT=base`): a bit-reversal gather, then one
-`fr_butterfly` kernel launch per DIT stage, applied in place, and the 1/n
-scale of the inverse through `fr_mont_mul`.  Values stay in the Montgomery
-domain end to end.  The constant-geometry kernel of the `fast` mode
-(`_cg_kernel_call`) is not ported yet.
+The twin of the JAX package's `ops/ntt.py`, in both of its modes
+(`ULTRAGROTH_NTT=fast|base`, `ntt_mode`):
+
+  * `base` (`ntt`): a bit-reversal gather, then one `fr_butterfly` kernel
+    launch per DIT stage, applied in place;
+  * `fast` (`ntt_fast`): the Bailey split of `_ntt_cols` down to columns
+    of at most 2^CG_MAX_LOG points, each transformed whole by ONE
+    `fr_cg_ntt` launch (the constant-geometry network in shared memory,
+    natural order out), with the split's twiddle product through
+    `fr_mont_mul` and its transposes as `permute(...).contiguous()`.
+
+The 1/n scale of the inverse goes through `fr_mont_mul`.  Values stay in
+the Montgomery domain end to end.  The default mode is `fast` on a CUDA
+tensor, as the JAX package's default on its accelerator, and `base` on
+the CPU.  There is no fallback from one mode to the other: a kernel that
+fails to build or launch raises.
 
 Twiddle tables, coset powers and the constants the quotient needs are
-made once per (log_n, device) by a `Domain`, on the device, by
-log-doubling through `fr_mont_mul`.
+made per (log_n, device) by a `Domain`, on the device, by log-doubling
+through `fr_mont_mul`.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -39,19 +51,40 @@ def _powers(base_int: int, m: int, device) -> torch.Tensor:
     return p[:, :m].contiguous()
 
 
-def _bitrev_perm(log_n: int) -> np.ndarray:
-    n = 1 << log_n
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
-    for b in range(log_n):
-        rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    return rev
+def ntt_mode(device, mode: str | None = None) -> str:
+    """The one place the NTT mode is decided: 'fast' (`fr_cg_ntt` columns)
+    or 'base' (one launch per stage).  An explicit `mode` wins, then
+    ULTRAGROTH_NTT (the twin of the JAX package's `_ntt_mode` switch);
+    the default is fast on CUDA, base on the CPU."""
+    mode = mode or os.environ.get("ULTRAGROTH_NTT") or (
+        "fast" if torch.device(device).type == "cuda" else "base")
+    if mode not in ("fast", "base"):
+        raise ValueError(f"unknown NTT mode {mode!r}")
+    return mode
+
+
+def _cg_sigmas(log_m: int) -> list:
+    """sigma_1 = bitrev, sigma_{s+1}(2i) = sigma_s(i), sigma_{s+1}(2i+1) =
+    sigma_s(i + M/2): the index bookkeeping of the constant-geometry
+    schedule (the JAX package's `_cg_sigmas`)."""
+    m = 1 << log_m
+    sig = kernels.bitrev_perm(log_m).numpy()
+    out = [sig]
+    for _ in range(log_m):
+        nxt = np.zeros(m, np.int64)
+        nxt[0::2] = sig[:m // 2]
+        nxt[1::2] = sig[m // 2:]
+        out.append(nxt)
+        sig = nxt
+    return out
 
 
 class Domain:
     """Per-(log_n, device) constants of the NTT and the quotient:
     per-stage twiddles of both directions, 1/n, the odd-coset powers
-    w_2n^i and H_SCALE (the twin of the JAX package's lru-cached tables)."""
+    w_2n^i and H_SCALE (the twin of the JAX package's lru-cached tables);
+    the fast mode's constant-geometry and Bailey-split twiddles are made
+    on first use and kept (`cg_twiddles`, `split_twiddles`)."""
 
     def __init__(self, log_n: int, device="cuda"):
         F = fr()
@@ -59,7 +92,9 @@ class Domain:
         self.device = torch.device(device)
         dtype = limb_dtype(device)
         n = 1 << log_n
-        self.bitrev = torch.from_numpy(_bitrev_perm(log_n)).to(self.device)
+        self._cg: dict = {}
+        self._split: dict = {}
+        self.bitrev = kernels.bitrev_perm(log_n).to(self.device)
         self.twiddles = {}
         for inverse in (False, True):
             w = root_of_unity(log_n)
@@ -75,6 +110,45 @@ class Domain:
         # standard-domain H_SCALE: mont_mul by it applies the R^-2 wire
         # scale and leaves standard form (protocol/quotient.py)
         self.h_scale = F.const(H_SCALE, (1,), device, dtype)
+
+    def cg_twiddles(self, log_m: int, inverse: bool) -> torch.Tensor:
+        """[log_m, 8, M/2] Montgomery twiddles of the constant-geometry
+        network: tw_s[i] = w^((sigma_s(i) mod 2^(s-1)) * (M >> s)), w the
+        2^log_m-th root (its inverse for the inverse transform)."""
+        key = (log_m, inverse)
+        if key not in self._cg:
+            m = 1 << log_m
+            w = root_of_unity(log_m)
+            if inverse:
+                w = pow(w, -1, FR_MODULUS)
+            sig = _cg_sigmas(log_m)
+            base = _powers(w, m, self.device)              # w^0 .. w^(m-1)
+            tables = []
+            for s in range(1, log_m + 1):
+                exps = (sig[s - 1][:m // 2] % (1 << (s - 1))) * (m >> s)
+                tables.append(base[:, torch.from_numpy(exps).to(self.device)])
+            self._cg[key] = torch.stack(tables).contiguous()
+        return self._cg[key]
+
+    def split_twiddles(self, log_m2: int, log_m1: int,
+                       inverse: bool) -> torch.Tensor:
+        """w_M^(k2 * j1) as Montgomery planes [8, M2, M1] for the Bailey
+        split of an M = M1 * M2 point transform."""
+        key = (log_m2, log_m1, inverse)
+        if key not in self._split:
+            m1, m2 = 1 << log_m1, 1 << log_m2
+            w = root_of_unity(log_m1 + log_m2)
+            if inverse:
+                w = pow(w, -1, FR_MODULUS)
+            F = fr()
+            p = F.one_mont((m2, 1), self.device, limb_dtype(self.device))
+            cur = _powers(w, m2, self.device)[:, :, None]   # w^k2
+            while p.shape[2] < m1:
+                p = torch.cat([p, kernels.fr_mont_mul(
+                    p, cur.expand_as(p).contiguous())], dim=2)
+                cur = kernels.fr_mont_mul(cur, cur)
+            self._split[key] = p[:, :, :m1].contiguous()
+        return self._split[key]
 
 
 @torch.inference_mode()
@@ -93,10 +167,46 @@ def ntt(a: torch.Tensor, dom: Domain, inverse: bool = False) -> torch.Tensor:
     return a
 
 
-def to_odd_coset(vals: torch.Tensor, dom: Domain) -> torch.Tensor:
+def _ntt_cols(h: torch.Tensor, log_m: int, inverse: bool,
+              dom: Domain) -> torch.Tensor:
+    """NTT along axis 1 of [8, M, CB] Montgomery planes, natural order in
+    and out, batched over the trailing column axis (the JAX package's
+    `_ntt_cols`).  Columns of at most 2^CG_MAX_LOG points go to one
+    `fr_cg_ntt` launch; a longer axis is split M = M2 * M1 (j = j2*M1 + j1,
+    k = k1*M2 + k2): NTT over j2, twiddle w_M^(k2*j1), transpose, NTT over
+    j1."""
+    if log_m <= kernels.CG_MAX_LOG:
+        return kernels.fr_cg_ntt(h.contiguous(),
+                                 dom.cg_twiddles(log_m, inverse))
+    log_m1 = min(kernels.CG_MAX_LOG, log_m - 1)
+    log_m2 = log_m - log_m1
+    m1, m2 = 1 << log_m1, 1 << log_m2
+    cb = h.shape[2]
+    v = _ntt_cols(h.reshape(L, m2, m1 * cb), log_m2, inverse, dom)
+    tw = dom.split_twiddles(log_m2, log_m1, inverse)          # [8, M2, M1]
+    v = kernels.fr_mont_mul(v.reshape(L, m2, m1, cb),
+                            tw[..., None].expand(L, m2, m1, cb).contiguous())
+    v = v.permute(0, 2, 1, 3).contiguous()                    # [8, M1, M2, CB]
+    v = _ntt_cols(v.reshape(L, m1, m2 * cb), log_m1, inverse, dom)
+    return v.reshape(L, m1 * m2, cb)
+
+
+@torch.inference_mode()
+def ntt_fast(a: torch.Tensor, dom: Domain, inverse: bool = False) -> torch.Tensor:
+    """Same contract as `ntt`, through `fr_cg_ntt` columns."""
+    n = 1 << dom.log_n
+    if tuple(a.shape) != (L, n):
+        raise ValueError(f"ntt_fast: expected {(L, n)}, got {tuple(a.shape)}")
+    out = _ntt_cols(a[:, :, None], dom.log_n, inverse, dom)[:, :, 0]
+    if inverse:
+        out = kernels.fr_mont_mul(out.contiguous(), dom.n_inv)
+    return out.contiguous()
+
+
+def to_odd_coset(vals: torch.Tensor, dom: Domain, ntt_fn=ntt) -> torch.Tensor:
     """ifft -> pointwise w_2n^i -> fft (all Montgomery domain)."""
-    coeffs = ntt(vals, dom, inverse=True)
-    return ntt(kernels.fr_mont_mul(coeffs, dom.coset), dom)
+    coeffs = ntt_fn(vals, dom, inverse=True)
+    return ntt_fn(kernels.fr_mont_mul(coeffs, dom.coset), dom)
 
 
 @torch.inference_mode()
@@ -140,16 +250,18 @@ def _redc_carry(wide: torch.Tensor, dtype) -> torch.Tensor:
 
 
 @torch.inference_mode()
-def quotient_scalars(a: torch.Tensor, b: torch.Tensor,
-                     dom: Domain) -> torch.Tensor:
+def quotient_scalars(a: torch.Tensor, b: torch.Tensor, dom: Domain,
+                     mode: str | None = None) -> torch.Tensor:
     """Montgomery-domain (a, b) evaluations -> standard-form H MSM scalars:
     h = (A*B - C) on the odd coset with the R^-2 wire scale folded into the
-    final product (parity: protocol/quotient.py:quotient_evals)."""
+    final product (parity: protocol/quotient.py:quotient_evals).  mode as
+    `ntt_mode` resolves it for the tensors' device."""
     F = fr()
     mul = kernels.fr_mont_mul
+    f = ntt_fast if ntt_mode(a.device, mode) == "fast" else ntt
     c = mul(a, b)
-    a2 = to_odd_coset(a, dom)
-    b2 = to_odd_coset(b, dom)
-    c2 = to_odd_coset(c, dom)
+    a2 = to_odd_coset(a, dom, f)
+    b2 = to_odd_coset(b, dom, f)
+    c2 = to_odd_coset(c, dom, f)
     h = F.sub(mul(a2, b2), c2)
     return mul(h.contiguous(), dom.h_scale)

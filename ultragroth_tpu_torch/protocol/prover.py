@@ -1,14 +1,23 @@
-"""CUDA-backed Groth16 prover: the twin of the JAX package's
-`JaxGroth16Prover` (`ultragroth_tpu/protocol/prover.py:126-253`).
+"""CUDA-backed Groth16 and UltraGroth provers: the twins of the JAX
+package's `JaxGroth16Prover` and `JaxUltraGrothProver`
+(`ultragroth_tpu/protocol/prover.py:126-399`).
 
-Pipeline (parity: Groth16::Prover::prove, src/groth16.cpp:48-203): limb
-split of the witness on the device, four witness MSMs (A, B1, C on G1, B2
-on G2), the sparse R1CS scatter, the quotient (three inverse-NTT /
+Groth16 pipeline (parity: Groth16::Prover::prove, src/groth16.cpp:48-203):
+limb split of the witness on the device, four witness MSMs (A, B1, C on
+G1, B2 on G2), the sparse R1CS scatter, the quotient (three inverse-NTT /
 odd-coset / NTT round trips and the H_SCALE product), the H MSM, then the
 five points to affine and the host blinding algebra (`finalize_proof`).
 
-This slice runs the NTT in the JAX package's `base` mode, without
-fixed-base MSM tables and without a mesh.
+UltraGroth (parity: src/ultra_groth.cpp:401-462) adds round 0 before it:
+a G1 MSM over the challenge-independent witness slice, the Fiat-Shamir
+challenge on the host (Keccak), and the lookup signals computed and
+scattered into the witness on the device (`_lookup_scatter`); its C MSM
+runs over the final slice, and `finalize_ultragroth` blinds with the
+round and final deltas.
+
+The quotient runs in the mode `ops.ntt.ntt_mode` resolves: the `ntt_mode`
+argument, else ULTRAGROTH_NTT, else `fast` on the card and `base` on the
+CPU.  No fixed-base MSM tables and no mesh in this slice.
 """
 from __future__ import annotations
 
@@ -18,13 +27,16 @@ import torch
 from ..constants import FQ_MODULUS as Q
 from ..ops import kernels
 from ..ops import limbs as lb
+from ..ops import ntt as _ntt
 from ..ops.field import fr
 from ..ops.msm import default_window, msm
 from ..ops.ntt import Domain, quotient_scalars, scatter_coefs
+from ..oracle import curve as oc
 from ..oracle import field as ofield
 from ..trace import Tracer
 from .groth16 import (Proof, decode_g1, decode_g2, finalize_proof,
                       random_blinding)
+from .ultragroth import derive_challenge, finalize_ultragroth
 
 
 def g1_section_to_planes(arr: np.ndarray, device="cpu"):
@@ -75,36 +87,32 @@ def normalize_outputs(g1_pts, g2_pt):
     return g1, g2
 
 
-class TorchGroth16Prover:
-    """Keeps the zkey resident on the device; prove() per witness.
+def _int_tensor(values, device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(values, np.int64)).to(device)
 
-    device: "cuda" (the default) or "cpu" (the plain PyTorch versions of
-    every kernel; what the CPU tests run)."""
 
-    def __init__(self, zkey, device="cuda"):
-        self.zk = zk = zkey
-        self.device = torch.device(device)
+class _ResidentKey:
+    """What both provers keep on the device: the A, B1, B2 and H point
+    tables, the R1CS coefficients, the NTT domain and the window sizes."""
+
+    def _load_common(self, zk, device, ntt_mode):
+        self.zk = zk
+        self.device = dev = torch.device(device)
         self.log_n = zk.domain_size.bit_length() - 1
         if (1 << self.log_n) != zk.domain_size:
             raise ValueError("zkey domain size is not a power of two")
-        dev = self.device
+        self.ntt_mode = _ntt.ntt_mode(dev, ntt_mode)
         self.points_a = g1_section_to_planes(zk.points_a, dev)
         self.points_b1 = g1_section_to_planes(zk.points_b1, dev)
         self.points_b2 = g2_section_to_planes(zk.points_b2, dev)
-        self.points_c = g1_section_to_planes(zk.points_c, dev)
         self.points_h = g1_section_to_planes(zk.points_h, dev)
         self.coef_val_mont = lb.words_to_planes(zk.coef_val, dev)
-        self.coef_m = torch.from_numpy(np.asarray(zk.coef_m, np.int64)).to(dev)
-        self.coef_c = torch.from_numpy(np.asarray(zk.coef_c, np.int64)).to(dev)
-        self.coef_s = torch.from_numpy(np.asarray(zk.coef_s, np.int64)).to(dev)
-
-        # blinding-term points for the host-side finalization
+        self.coef_m = _int_tensor(zk.coef_m, dev)
+        self.coef_c = _int_tensor(zk.coef_c, dev)
+        self.coef_s = _int_tensor(zk.coef_s, dev)
         self.alpha1 = decode_g1(zk.alpha1)
         self.beta1 = decode_g1(zk.beta1)
         self.beta2 = decode_g2(zk.beta2)
-        self.delta1 = decode_g1(zk.delta1)
-        self.delta2 = decode_g2(zk.delta2)
-
         self.c_vars = default_window(zk.n_vars)
         self.c_h = default_window(zk.domain_size)
         self.domain = Domain(self.log_n, dev)
@@ -112,22 +120,17 @@ class TorchGroth16Prover:
         self._r2 = F.const(F.r2, (1,), dev, lb.limb_dtype(dev))
         self.last_phase_ms: dict | None = None
 
-    @torch.inference_mode()
-    def msm_outputs(self, witness_words: np.ndarray, tracer: Tracer):
-        """The five MSM results as xyzz points (pi_a, pi_b1, pi_b2, pi_c,
-        pi_h); phase names follow the JAX package's."""
-        zk, t = self.zk, tracer
-        w_std = t.run("upload", lambda: lb.words_to_planes(witness_words,
-                                                           self.device))
+    def _final_round(self, t: Tracer, w_std, points_c, w_c, c_c):
+        """A, B1, B2 over the whole witness, C over `w_c`, the scatter, the
+        quotient and H: the five MSM results as xyzz points."""
+        zk = self.zk
         pi_a = t.run("msm_a", lambda: msm("g1", *self.points_a, w_std,
                                           self.c_vars))
         pi_b1 = t.run("msm_b1", lambda: msm("g1", *self.points_b1, w_std,
                                             self.c_vars))
         pi_b2 = t.run("msm_b2", lambda: msm("g2", *self.points_b2, w_std,
                                             self.c_vars))
-        w_c = w_std[:, zk.n_public + 1:].contiguous()
-        pi_c = t.run("msm_c", lambda: msm("g1", *self.points_c, w_c,
-                                          self.c_vars))
+        pi_c = t.run("msm_c", lambda: msm("g1", *points_c, w_c, c_c))
 
         def scatter():
             w_mont = kernels.fr_mont_mul(w_std, self._r2)
@@ -135,10 +138,36 @@ class TorchGroth16Prover:
                                  self.coef_c, self.coef_s, zk.domain_size)
 
         a, b = t.run("scatter", scatter)
-        h_std = t.run("quotient", lambda: quotient_scalars(a, b, self.domain))
+        h_std = t.run("quotient", lambda: quotient_scalars(
+            a, b, self.domain, self.ntt_mode))
         pi_h = t.run("msm_h", lambda: msm("g1", *self.points_h, h_std,
                                           self.c_h))
         return pi_a, pi_b1, pi_b2, pi_c, pi_h
+
+
+class TorchGroth16Prover(_ResidentKey):
+    """Keeps the zkey resident on the device; prove() per witness.
+
+    device: "cuda" (the default) or "cpu" (the plain PyTorch versions of
+    every kernel; what the CPU tests run).  ntt_mode: "fast", "base" or
+    None, resolved by `ops.ntt.ntt_mode`."""
+
+    def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
+        self._load_common(zkey, device, ntt_mode)
+        self.points_c = g1_section_to_planes(zkey.points_c, self.device)
+        # blinding-term points for the host-side finalization
+        self.delta1 = decode_g1(zkey.delta1)
+        self.delta2 = decode_g2(zkey.delta2)
+
+    @torch.inference_mode()
+    def msm_outputs(self, witness_words: np.ndarray, tracer: Tracer):
+        """The five MSM results as xyzz points (pi_a, pi_b1, pi_b2, pi_c,
+        pi_h); phase names follow the JAX package's."""
+        w_std = tracer.run("upload", lambda: lb.words_to_planes(
+            witness_words, self.device))
+        w_c = w_std[:, self.zk.n_public + 1:].contiguous()
+        return self._final_round(tracer, w_std, self.points_c, w_c,
+                                 self.c_vars)
 
     def prove(self, witness_words: np.ndarray, r: int | None = None,
               s: int | None = None) -> Proof:
@@ -155,3 +184,88 @@ class TorchGroth16Prover:
         t.mark("finalize")
         self.last_phase_ms = t.report()
         return proof
+
+
+class TorchUltraGrothProver(_ResidentKey):
+    """The 2-round lookup prover; keeps the zkey resident on the device.
+
+    The heavy phases (six MSMs, the lookup inversion, the quotient NTTs)
+    run on the device; the Keccak challenge and the O(1) blinding algebra
+    on the host.  device and ntt_mode as for `TorchGroth16Prover`."""
+
+    def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
+        self._load_common(zkey, device, ntt_mode)
+        zk, dev = zkey, self.device
+        self.round_points_c = g1_section_to_planes(zk.round_points_c, dev)
+        self.final_points_c = g1_section_to_planes(zk.final_points_c, dev)
+        self.round_indexes = _int_tensor(zk.round_indexes, dev)
+        self.final_indexes = _int_tensor(zk.final_indexes, dev)
+        self.round_delta1 = decode_g1(zk.round_delta1)
+        self.final_delta1 = decode_g1(zk.final_delta1)
+        self.final_delta2 = decode_g2(zk.final_delta2)
+        self.c_round = default_window(len(zk.round_indexes))
+        self.c_final = default_window(len(zk.final_indexes))
+
+    def _lookup_scatter(self, w_std, lookup, rand: int):
+        """compute_lookup on the device (parity: src/ultra_groth.cpp:61-106):
+        table (i + rand) mod r for i < T, one batch inversion, prod =
+        freq * inv2, inv1 = inv2[chunks]; the push vector [rand | inv1 |
+        inv2 | prod] scattered into a copy of w at wtns_indxs.  The Fr
+        products run through `fr_mont_mul`; inv(0) = 0, as the oracle's."""
+        F = fr()
+        dev, dtype = self.device, w_std.dtype
+        mul = kernels.fr_mont_mul
+        one = F.const(1, (1,), dev, dtype)
+        freqs = _int_tensor(lookup.frequencies, dev)
+        n_t = freqs.shape[0]
+        idx_std = torch.zeros((8, n_t), dtype=torch.int64, device=dev)
+        idx_std[0] = torch.arange(n_t, device=dev)
+        freq_std = torch.zeros_like(idx_std)
+        freq_std[0] = freqs
+        rand_std = lb.ints_to_planes([rand], dev)
+        table_std = F.add(lb.narrow(idx_std, dtype), rand_std)
+        inv2_m = F.batch_inv_mont(mul(table_std, self._r2), mul=mul)
+        freq_m = mul(lb.narrow(freq_std, dtype), self._r2)
+        prod_std = mul(mul(freq_m, inv2_m), one)
+        inv2_std = mul(inv2_m, one)
+        inv1_std = inv2_std[:, _int_tensor(lookup.chunks, dev)]
+        push = torch.cat([rand_std, inv1_std, inv2_std, prod_std], dim=1)
+        w = w_std.clone()
+        w[:, _int_tensor(lookup.wtns_indxs, dev)] = \
+            push[:, _int_tensor(lookup.push_indxs, dev)]
+        return w
+
+    @torch.inference_mode()
+    def prove(self, witness_words: np.ndarray, lookup, r0: int | None = None,
+              r: int | None = None, s: int | None = None):
+        """lookup: chunks, frequencies, wtns_indxs, push_indxs (a parsed
+        .uwtns, `io/wtns.py:parse_wtns`).  Returns (UltraGrothProof, the
+        final witness as ints, for `public_signals`)."""
+        zk = self.zk
+        if witness_words.shape[0] != zk.n_vars:
+            raise ValueError("Invalid witness length.")
+        r0 = random_blinding() if r0 is None else r0
+        r = random_blinding() if r is None else r
+        s = random_blinding() if s is None else s
+        t = Tracer(self.device)
+        w_std = lb.words_to_planes(witness_words, self.device)
+
+        def round0():
+            w_r = w_std[:, self.round_indexes].contiguous()
+            pt = msm("g1", *self.round_points_c, w_r, self.c_round)
+            d = _xyzz_to_affine_host(lb.planes_to_ints(pt.T), False)
+            return oc.g1_add(d, oc.g1_mul(self.final_delta1, r0))
+
+        d = t.run("round0_commit", round0)
+        rand = derive_challenge(d)
+        w_std = t.run("lookup", lambda: self._lookup_scatter(
+            w_std, lookup, rand))
+        w_c = w_std[:, self.final_indexes].contiguous()
+        pi_a, pi_b1, pi_b2, pi_c, pi_h = self._final_round(
+            t, w_std, self.final_points_c, w_c, self.c_final)
+        (a, b1, c_, h), b2 = normalize_outputs((pi_a, pi_b1, pi_c, pi_h),
+                                               pi_b2)
+        proof = finalize_ultragroth(self, a, b1, b2, c_, h, d, r0, r, s)
+        t.mark("finalize")
+        self.last_phase_ms = t.report()
+        return proof, lb.planes_to_ints(w_std)

@@ -40,7 +40,11 @@ class LookupCircuit:
         self.K, self.T = K, T
         self.chunk_values = [int(c) for c in chunk_values]
         self.pub_x = pub_x % R
-        self.frequencies = [self.chunk_values.count(i) for i in range(T)]
+        # one counting pass (list.count per table entry is K * T steps:
+        # ~6e10 at K ~ 2^20, T = 2^16)
+        self.frequencies = np.bincount(
+            np.asarray(self.chunk_values, dtype=np.int64),
+            minlength=T).tolist()
 
         v_one, v_rand, v_pub = 0, 1, 2
         self.rand_indx = v_rand
@@ -71,13 +75,14 @@ class LookupCircuit:
         self.push_indxs = list(range(1 + K + 2 * T))
 
     def witness_words(self) -> np.ndarray:
-        """Initial witness (lookup signals zero; prover fills them)."""
-        w = [0] * self.r1cs.n_vars
-        w[0] = 1
-        w[2] = self.pub_x
-        for j, cv in enumerate(self.chunk_values):
-            w[3 + j] = cv
-        return ints_to_array(w)
+        """Initial witness (lookup signals zero; prover fills them), as
+        [n_vars, 8] u32 words; written into the array directly, since the
+        chunk values fit one word."""
+        w = np.zeros((self.r1cs.n_vars, 8), dtype=np.uint32)
+        w[0, 0] = 1
+        w[2] = ints_to_array([self.pub_x])[0]
+        w[3:3 + self.K, 0] = np.asarray(self.chunk_values, dtype=np.uint32)
+        return w
 
     def uwtns_bytes(self) -> bytes:
         """.uwtns container (sections per src/prover.cpp:287-292)."""

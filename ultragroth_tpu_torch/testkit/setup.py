@@ -141,6 +141,7 @@ class SetupResult:
     zkey_bytes: bytes
     vk_json: dict
     taus: dict  # toxic waste, kept for test introspection
+    seconds: dict = field(default_factory=dict)   # by part (device set-up)
 
 
 def _common(r1cs: R1CS, rng: random.Random):
@@ -251,6 +252,7 @@ class UltraSetupResult:
     zkey_bytes: bytes
     vk_json: dict
     taus: dict
+    seconds: dict = field(default_factory=dict)   # by part (device set-up)
 
 
 def ultragroth_setup(r1cs: R1CS, round_indexes, final_indexes,
