@@ -14,14 +14,28 @@ then the full-width lookup circuit (domain 2^20, T = 2^16), its key made
 by the device set-up on the card, proved, checked with the 5-pairing
 verifier and its lookup signals against the oracle's.
 
+Then the entry points and the second field mode: both kernel builds
+(`cios` and `mma`, the latter with the Montgomery reduction on the tensor
+cores, `csrc/mma_field.cuh`) are held against the plain versions; the
+2^20 Groth16 prove runs once more over fixed-base tables
+(ULTRAGROTH_FIXED_MSM_MB), its MSMs against their known logs and its proof
+against the variable-base one; the 2^20 UltraGroth key is proved through
+`api.UltraGrothProver` in the `mma` mode (ULTRAGROTH_MXU_FIELD=1), its proof
+equal to the default mode's for pinned randomness and verified by
+`api.ultra_groth_verify`; the proof server answers a POSTed 2^20 .uwtns
+with a verifying proof and a /cancel mid-prove with `aborted`; and the CLI
+sets up, proves and verifies a 2^10 circuit in subprocesses.
+
 One line per phase (name, seconds, pass/fail) is printed as each phase
 ends; before the last line come one JSON object with every kernel's
 launches (their sum over the driven paths in `launches`, each path's own
 count in `launches_by_path`) and its times, and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits non-zero.  Each driven path (the Groth16 2^20 prove, the same prove
-in the `base` NTT mode, the UltraGroth set-up and prove) runs with the
-launch counts set to 0 just before it and read just after.
+in the `base` NTT mode and over fixed-base tables, the UltraGroth set-up
+and prove, the UltraGroth prove through the API in the `mma` mode) runs
+with the launch counts set to 0 just before it and read just after; the
+`mont_mul_mma` row counts the launches of MMA-built kernels.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -30,10 +44,15 @@ from __future__ import annotations
 import contextlib
 import json
 import multiprocessing
+import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -58,6 +77,14 @@ UG_SMALL = (64, 16)        # chunks, table of the small set-up and prove
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
 MUL_IMAD = 264             # one 8-limb CIOS product: 8 * (16 + 1 + 16)
+# The MMA product (csrc/mma_field.cuh): the 512-bit schoolbook, 128
+# multiply-adds, on the int32 pipes; the two Toeplitz products, 32 x 32 +
+# 64 x 32 = 3,072 u8 MACs (2 operations each) a lane, on the tensor cores
+# at the dense int8 rate.
+MMA_IMAD = 128
+MMA_U8_OPS = 2 * 3072
+INT8_OPS_PER_S = 1.979e15
+FIXED_MSM_MB = "8000"      # all five 2^20 tables: 4 x 1.01 GB G1 + 2.01 GB G2
 
 
 class CheckFailed(RuntimeError):
@@ -287,7 +314,17 @@ def _rand_field(shape, p, gen, dev):
     return lb.narrow(x, torch.int32).contiguous()
 
 
-def kernel_checks(dev):
+def kernel_checks(dev, mode):
+    """Every kernel of the `mode` build against its plain version at the
+    main path's shapes, timed; the plain versions timed in the cios pass
+    only (the same function either way)."""
+    from ultragroth_tpu_torch.ops import kernels as K
+    with K.field_mode(mode):
+        return _kernel_checks(dev, host_time_ms if mode == "cios"
+                              else (lambda fn: None))
+
+
+def _kernel_checks(dev, plain):
     from ultragroth_tpu_torch.constants import FQ_MODULUS as Q, FR_MODULUS as R
     from ultragroth_tpu_torch.ops import kernels as K
     from ultragroth_tpu_torch.ops import limbs as lb
@@ -312,9 +349,11 @@ def kernel_checks(dev):
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
             library_ms=None)
-        print(f"  {name}: err {max_abs} kernel {ms:.4f} ms plain "
-              f"{plain_ms:.2f} ms bound {max(b_bytes, b_ops):.4f} ms "
-              f"({results[name]['bound_by']})", flush=True)
+        plain_s = "-" if plain_ms is None else f"{plain_ms:.2f}"
+        print(f"  [{K.current_field_mode()}] {name}: err {max_abs} kernel "
+              f"{ms:.4f} ms plain {plain_s} ms bound "
+              f"{max(b_bytes, b_ops):.4f} ms ({results[name]['bound_by']})",
+              flush=True)
 
     # -- Fr kernels -----------------------------------------------------------
     n = table_n
@@ -324,7 +363,7 @@ def kernel_checks(dev):
     p = K.fr_mont_mul_plain(a, b)
     check(torch.equal(k, p), "fr_mont_mul disagrees with its plain version")
     record("fr_mont_mul", err(k, p), cuda_time_ms(lambda: K.fr_mont_mul(a, b), 50),
-           host_time_ms(lambda: K.fr_mont_mul_plain(a, b)),
+           plain(lambda: K.fr_mont_mul_plain(a, b)),
            3 * 32 * n, n * MUL_IMAD)
     tw = _rand_field((8, n // 2), R, gen, dev)
     k = K.fr_butterfly(a.clone(), tw)
@@ -333,7 +372,7 @@ def kernel_checks(dev):
     work = a.clone()
     record("fr_butterfly", err(k, p),
            cuda_time_ms(lambda: K.fr_butterfly(work, tw), 50),
-           host_time_ms(lambda: K.fr_butterfly_plain(work.clone(), tw)),
+           plain(lambda: K.fr_butterfly_plain(work.clone(), tw)),
            2 * 32 * n + 32 * (n // 2), (n // 2) * MUL_IMAD)
 
     # -- fr_cg_ntt at the shape ntt_fast gives it at 2^20: two launches of
@@ -349,7 +388,7 @@ def kernel_checks(dev):
         p = K.fr_cg_ntt_plain(x, tw)
         check(torch.equal(k, p), "fr_cg_ntt disagrees with its plain version")
     record("fr_cg_ntt", err(k, p), cuda_time_ms(lambda: K.fr_cg_ntt(x, tw), 50),
-           host_time_ms(lambda: K.fr_cg_ntt_plain(x, tw)),
+           plain(lambda: K.fr_cg_ntt_plain(x, tw)),
            2 * 32 * m * cb + tw.numel() * 4, log_m * (m // 2) * cb * MUL_IMAD)
 
     # -- curve kernels ----------------------------------------------------------
@@ -391,7 +430,7 @@ def kernel_checks(dev):
         record(f"{group}_madd_fast", err(k, p),
                cuda_time_ms(lambda: K.curve_madd_fast(
                    group, acc, table, orders, gidx, stride, cnt, 0, out=out), 50),
-               host_time_ms(lambda: K.curve_madd_fast_plain(
+               plain(lambda: K.curve_madd_fast_plain(
                    group, acc, table, orders, gidx, stride, cnt, 0)),
                pts_bytes + 2 * acc_bytes + idx_bytes + lanes,
                valid * (8 * fq_mul + 2 * fq_sqr))
@@ -405,7 +444,7 @@ def kernel_checks(dev):
         record(f"{group}_madd_signed", err(k, p),
                cuda_time_ms(lambda: K.curve_madd_signed(
                    group, acc, table, orders, gidx, stride, cnt, 0, out=out), 50),
-               host_time_ms(lambda: K.curve_madd_signed_plain(
+               plain(lambda: K.curve_madd_signed_plain(
                    group, acc, table, orders, gidx, stride, cnt, 0)),
                pts_bytes + 2 * acc_bytes + idx_bytes,
                valid * (8 * fq_mul + 2 * fq_sqr))
@@ -425,11 +464,11 @@ def kernel_checks(dev):
         n_ok = int(ok.sum())
         record(f"{group}_add_where", err(k, p),
                cuda_time_ms(lambda: K.curve_add_where(group, a, b, ok), 50),
-               host_time_ms(lambda: K.curve_add_where_plain(group, a, b, ok)),
+               plain(lambda: K.curve_add_where_plain(group, a, b, ok)),
                3 * 4 * kq * 32 * fold_n + fold_n,
                n_ok * (12 * fq_mul + 2 * fq_sqr))
 
-        madd_valid_checks(group, gen, dev, record, err)
+        madd_valid_checks(group, gen, dev, record, err, plain)
 
         h = acc[..., :horner_n].contiguous()
         k = K.curve_horner_scale(group, h, horner_c)
@@ -439,13 +478,13 @@ def kernel_checks(dev):
         n_dbl = horner_c * horner_n * (horner_n - 1) // 2
         record(f"{group}_horner_scale", err(k, p),
                cuda_time_ms(lambda: K.curve_horner_scale(group, h, horner_c), 10),
-               host_time_ms(lambda: K.curve_horner_scale_plain(group, h,
+               plain(lambda: K.curve_horner_scale_plain(group, h,
                                                                horner_c)),
                2 * 4 * kq * 32 * horner_n, n_dbl * (6 * fq_mul + 3 * fq_sqr))
     return results
 
 
-def madd_valid_checks(group, gen, dev, record, err):
+def madd_valid_checks(group, gen, dev, record, err, plain):
     """curve_madd_valid against its plain version at 2^16 lanes on the
     device set-up's real window table, with infinity on either side,
     P == Q and P == -Q among the lanes; timed at 2^20 lanes, the set-up's
@@ -492,7 +531,7 @@ def madd_valid_checks(group, gen, dev, record, err):
     record(f"{group}_madd_valid", err(k, p),
            cuda_time_ms(lambda: K.curve_madd_valid(
                group, acc_big, table, tinf, sc_big, 1, out=out), 20),
-           host_time_ms(lambda: K.curve_madd_valid_plain(
+           plain(lambda: K.curve_madd_valid_plain(
                group, acc_big, table, tinf, sc_big, 1)),
            2 * 4 * kq * 32 * big + 4 * big + 2 * kq * 32 * 8192 + 8192,
            needed * (8 * fq_mul + 2 * fq_sqr))
@@ -638,6 +677,278 @@ def ultragroth_full_width(dev, drive):
     drive("ultragroth_2^20_steady", lambda: prover.prove(wt.values, wt))
     print(f"  steady prove {time.perf_counter() - t0:.3f} s "
           f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
+    return st, circ, wt, prover
+
+
+# ---------------------------------------------------------------------------
+# the MMA field, fixed-base tables, the entry points
+# ---------------------------------------------------------------------------
+
+def mma_field_checks(dev, mma_ms):
+    """mont_mul_mma directly, at 2^16 lanes, through the MMA build's
+    fr_mont_mul and the Fq product probe, with the edges 0, 1, p - 1,
+    inputs in [p, 2p) and a < 2^256 (b < p): equal to the plain CIOS
+    product, to mont_mul_mma_plain and to the CIOS build.  Returns the
+    `mont_mul_mma` row's numbers: the MMA fr_mont_mul at 2^20 lanes
+    (`mma_ms`, timed by the mma pass of phase 2) beside its bound and
+    mont_mul_mma_plain at 2^20 on the card."""
+    from ultragroth_tpu_torch.constants import FQ_MODULUS as Q, FR_MODULUS as R
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.ops import limbs as lb
+    from ultragroth_tpu_torch.ops.field import fq, fr
+    from ultragroth_tpu_torch.ops.mxufield import mont_mul_mma_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+    n = 1 << 16
+    worst = 0
+    for F, kern, p in ((fr(), K.fr_mont_mul, R), (fq(), K.fq_mont_mul, Q)):
+        a = _rand_field((8, n), p, gen, dev)
+        b = _rand_field((8, n), p, gen, dev)
+        top = (1 << 256) - 1
+        edges = [(0, None), (1, None), (p - 1, None), (None, 0), (None, 1),
+                 (None, p - 1), (p, p), (2 * p - 1, 2 * p - 1),
+                 (p + 12345, 2 * p - 7), (top, p - 1), (top, None),
+                 (top - 12345, None)]
+        for i, (x, y) in enumerate(edges):
+            if x is not None:
+                a[:, i] = lb.ints_to_planes([x], dev)[:, 0]
+            if y is not None:
+                b[:, i] = lb.ints_to_planes([y], dev)[:, 0]
+        with K.field_mode("mma"):
+            k = kern(a, b)
+        with K.field_mode("cios"):
+            k_cios = kern(a, b)
+        want = F.mont_mul(a, b)
+        worst = max(worst, int((lb.widen(k) - lb.widen(want)).abs().max()))
+        check(torch.equal(k, want) and torch.equal(k, k_cios)
+              and torch.equal(k, mont_mul_mma_plain(F, a, b)),
+              f"mont_mul_mma ({F.name}) disagrees with the plain products")
+        print(f"  mont_mul_mma {F.name}: {n} lanes with {len(edges)} edge "
+              "lanes == plain CIOS == mont_mul_mma_plain == the CIOS build",
+              flush=True)
+    n = 1 << LOG_N
+    a = _rand_field((8, n), R, gen, dev)
+    b = _rand_field((8, n), R, gen, dev)
+    plain_ms = host_time_ms(lambda: mont_mul_mma_plain(fr(), a, b))
+    b_bytes = 3 * 32 * n / HBM_BYTES_PER_S * 1e3
+    b_ops = max(n * MMA_IMAD / IMAD_PER_S, n * MMA_U8_OPS / INT8_OPS_PER_S) * 1e3
+    row = dict(max_abs_err=worst, ms=mma_ms, plain_ms=plain_ms,
+               bound_ms=max(b_bytes, b_ops),
+               bound_by="bytes" if b_bytes >= b_ops else "operations",
+               library_ms=None)
+    print(f"  mont_mul_mma (MMA fr_mont_mul, 2^{LOG_N} lanes): {mma_ms:.4f} ms "
+          f"plain {plain_ms:.2f} ms bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: bytes {b_bytes:.4f}, int32 "
+          f"{n * MMA_IMAD / IMAD_PER_S * 1e3:.4f}, int8 tensor "
+          f"{n * MMA_U8_OPS / INT8_OPS_PER_S * 1e3:.4f})", flush=True)
+    return row
+
+
+def fixed_base_prove(dev, drive, zk, witness, expect, proof_json):
+    """The 2^20 Groth16 key of phase 4 with a table for each of its five
+    point sets: the five MSM outputs against their known-log values and
+    the proof against the variable-base proof for the same r, s."""
+    from ultragroth_tpu_torch.protocol.prover import (TorchGroth16Prover,
+                                                     normalize_outputs)
+    from ultragroth_tpu_torch.trace import Tracer
+    os.environ["ULTRAGROTH_FIXED_MSM_MB"] = FIXED_MSM_MB
+    try:
+        t0 = time.perf_counter()
+        prover = TorchGroth16Prover(zk)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["ULTRAGROTH_FIXED_MSM_MB"]
+    check(sorted(prover.fixed) == ["a", "b1", "b2", "c", "h"],
+          f"fixed-base tables for {sorted(prover.fixed)} only")
+    table_bytes = sum(t.numel() * t.element_size()
+                      for t, _, _ in prover.fixed.values())
+    print(f"  fixed-base tables built in {prover.fixed_seconds:.2f} s "
+          f"(prover set-up {time.perf_counter() - t0:.2f} s): "
+          f"{json.dumps({k: v[2] for k, v in prover.fixed.items()})} "
+          f"(c per set), {table_bytes / 1e9:.3f} GB", flush=True)
+    t0 = time.perf_counter()
+    proof = drive("groth16_2^20_fixed", lambda: prover.prove(
+        witness, r=R_BLIND, s=S_BLIND))
+    print(f"  first prove {time.perf_counter() - t0:.3f} s last_phase_ms "
+          f"{json.dumps(prover.last_phase_ms)}", flush=True)
+    check(proof.to_json() == proof_json,
+          "the fixed-base proof differs from the variable-base proof")
+    outs = prover.msm_outputs(witness, Tracer(dev))
+    (pa, pb1, pc, ph), pb2 = normalize_outputs(
+        (outs[0], outs[1], outs[3], outs[4]), outs[2])
+    got = {"a": pa, "b1": pb1, "b2": pb2, "c": pc, "h": ph}
+    for name in expect:
+        check(got[name] == expect[name], f"fixed-base 2^{LOG_N} MSM {name} "
+              "differs from its known-log value")
+    print("  five fixed-base MSM outputs equal their known-log values; "
+          "proof == the variable-base proof", flush=True)
+    t0 = time.perf_counter()
+    prover.prove(witness, r=R_BLIND, s=S_BLIND)
+    torch.cuda.synchronize()
+    print(f"  steady prove {time.perf_counter() - t0:.3f} s last_phase_ms "
+          f"{json.dumps(prover.last_phase_ms)}", flush=True)
+
+
+def api_mma_prove(drive, mma_paths, st, uwtns, wt, default_prover):
+    """`api.UltraGrothProver` on the 2^20 key in the mma mode: its proof
+    equal to the default mode's for pinned randomness, accepted by
+    `api.ultra_groth_verify`, a tampered public input refused."""
+    from ultragroth_tpu_torch import api
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.ops import kernels as K
+    pins = dict(r0=R0_BLIND, r=R_BLIND, s=S_BLIND)
+    os.environ["ULTRAGROTH_MXU_FIELD"] = "1"
+    try:
+        t0 = time.perf_counter()
+        handle = api.UltraGrothProver(st.zkey_bytes)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["ULTRAGROTH_MXU_FIELD"]
+    check(handle._prover.field_mode == "mma", "the API prover is not in "
+          "the mma mode")
+    print(f"  api.UltraGrothProver (mma) set-up {time.perf_counter() - t0:.2f}"
+          " s", flush=True)
+    t0 = time.perf_counter()
+    proof_json, public_json = drive("ultragroth_2^20_api_mma",
+                                    lambda: handle.prove(uwtns, **pins))
+    mma_paths["ultragroth_2^20_api_mma"] = K.launch_counts("mma")
+    print(f"  first prove (mma) {time.perf_counter() - t0:.3f} s "
+          f"last_phase_ms {json.dumps(handle._prover.last_phase_ms)}",
+          flush=True)
+    t0 = time.perf_counter()
+    handle.prove(uwtns, **pins)
+    print(f"  steady prove (mma) {time.perf_counter() - t0:.3f} s "
+          f"last_phase_ms {json.dumps(handle._prover.last_phase_ms)}",
+          flush=True)
+    t0 = time.perf_counter()
+    proof, _ = default_prover.prove(wt.values, wt, **pins)
+    torch.cuda.synchronize()
+    print(f"  steady prove (cios, the default) {time.perf_counter() - t0:.3f}"
+          f" s last_phase_ms {json.dumps(default_prover.last_phase_ms)}",
+          flush=True)
+    check(proof_json == proof.to_json(),
+          "the mma-mode proof differs from the default mode's")
+    vk_json = json.dumps(st.vk_json)
+    check(api.ultra_groth_verify(proof_json, public_json, vk_json)
+          == api.VERIFIER_VALID_PROOF, "api.ultra_groth_verify refuses the "
+          "mma-mode proof")
+    pub = json.loads(public_json)
+    bad = json.dumps([str((int(pub[0]) + 1) % R)] + pub[1:])
+    check(api.ultra_groth_verify(proof_json, bad, vk_json)
+          == api.VERIFIER_INVALID_PROOF, "a tampered public input verifies")
+    print("  mma proof == default-mode proof; api.ultra_groth_verify: "
+          "valid, a tampered public input invalid", flush=True)
+
+
+def _http(base, path, data=None, octet=False):
+    headers = {"Content-Type": "application/octet-stream"} if octet else {}
+    req = urllib.request.Request(f"{base}{path}", data=data, headers=headers)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read() or b"null")
+
+
+def _wait_status(base, done, seconds):
+    t_end = time.perf_counter() + seconds
+    while time.perf_counter() < t_end:
+        st = _http(base, "/status")
+        if done(st["status"]):
+            return st
+        time.sleep(0.05)
+    raise CheckFailed(f"server status stuck at {st['status']}")
+
+
+def server_check(st, uwtns):
+    """`server.serve` in this process on the 2^20 UltraGroth key (written
+    to a temporary directory): a POSTed .uwtns gives a verifying proof; a
+    second POST cancelled mid-prove ends `aborted` within a phase."""
+    from ultragroth_tpu_torch import api
+    from ultragroth_tpu_torch.server import serve
+    tmp = tempfile.mkdtemp(prefix="ultragroth_smoke_")
+    try:
+        path = os.path.join(tmp, "lookup.zkey")
+        with open(path, "wb") as f:
+            f.write(st.zkey_bytes)
+        t0 = time.perf_counter()
+        fp, httpd = serve([path], port=0)
+        check(type(fp.provers["lookup"]).__name__ == "UltraGrothProver",
+              "the server did not detect the UltraGroth key")
+        print(f"  server up, key loaded in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        worker = threading.Thread(target=httpd.serve_forever, daemon=True)
+        worker.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            t0 = time.perf_counter()
+            _http(base, "/input/lookup", uwtns, octet=True)
+            res = _wait_status(base, lambda s: s not in ("busy", "ready"), 600)
+            check(res["status"] == "success", f"server status {res}")
+            phases = fp.provers["lookup"]._prover.last_phase_ms
+            print(f"  POST -> success in {time.perf_counter() - t0:.2f} s; "
+                  f"last_phase_ms {json.dumps(phases)}", flush=True)
+            check(api.ultra_groth_verify(res["proof"], res["pubData"],
+                                         json.dumps(st.vk_json))
+                  == api.VERIFIER_VALID_PROOF,
+                  "the server's proof does not verify")
+            _http(base, "/input/lookup", uwtns, octet=True)
+            _wait_status(base, lambda s: s == "busy", 60)
+            time.sleep(1.0)
+            t0 = time.perf_counter()
+            _http(base, "/cancel", b"")
+            res = _wait_status(base, lambda s: s != "busy", 600)
+            abort_ms = (time.perf_counter() - t0) * 1e3
+            longest = max(phases.values())
+            check(res["status"] == "aborted" and fp.proof is None,
+                  f"/cancel mid-prove gave {res['status']}")
+            check(abort_ms <= 2 * longest + 2000, f"aborted {abort_ms:.0f} ms "
+                  f"after /cancel; the longest phase took {longest:.0f} ms")
+            print(f"  /cancel mid-prove -> aborted after {abort_ms:.0f} ms "
+                  f"(longest phase {longest:.0f} ms)", flush=True)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            worker.join(timeout=60)
+            fp.provers.clear()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cli_check():
+    """The CLI on the card at 2^10, each command in a subprocess: setup,
+    prove, verify (exit 0), verify of a tampered public file (exit 1)."""
+    tmp = tempfile.mkdtemp(prefix="ultragroth_cli_")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ULTRAGROTH_MXU_FIELD", "ULTRAGROTH_FIXED_MSM_MB")}
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*args):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "ultragroth_tpu_torch.cli",
+                              *args], cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        print(f"  cli {args[0]}: exit {res.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"{res.stderr.strip().splitlines()[-1:] or ''}", flush=True)
+        return res.returncode
+
+    try:
+        f = {k: os.path.join(tmp, k) for k in
+             ("c.zkey", "vk.json", "w.wtns", "proof.json", "pub.json",
+              "bad.json")}
+        check(run("setup", f["c.zkey"], "--vk", f["vk.json"], "--wtns",
+                  f["w.wtns"], "--constraints", str(SMALL_CONSTRAINTS),
+                  "--seed", "3") == 0, "cli setup failed")
+        check(run("prove", f["c.zkey"], f["w.wtns"], f["proof.json"],
+                  f["pub.json"]) == 0, "cli prove failed")
+        check(run("verify", f["vk.json"], f["pub.json"], f["proof.json"]) == 0,
+              "cli verify refuses the CLI's proof")
+        with open(f["pub.json"]) as fh:
+            pub = json.load(fh)
+        with open(f["bad.json"], "w") as fh:
+            json.dump([str(int(pub[0]) + 1)] + pub[1:], fh)
+        check(run("verify", f["vk.json"], f["bad.json"], f["proof.json"]) != 0,
+              "cli verify accepts a tampered public input")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -661,6 +972,7 @@ def main() -> int:
     from ultragroth_tpu_torch.trace import Tracer
 
     paths = {}          # driven path -> its launch counts
+    mma_paths = {}      # driven path -> its launches of MMA-built kernels
 
     def drive(name, fn):
         """Run one driven path with the launch counts set to 0 just before
@@ -684,16 +996,24 @@ def main() -> int:
 
     with phase("1_kernel_build"):
         t0 = time.perf_counter()
-        outs = _build.build()
-        _build.load()
+        outs = _build.build(tuple(_build.MODES))    # all six nvcc together
+        for mode in _build.MODES:
+            _build.load(mode)
         print(f"  build seconds {time.perf_counter() - t0:.2f}", flush=True)
-        for so in outs.values():
+        for (src, mode), so in outs.items():
             for line in so.with_suffix(".log").read_text().splitlines():
                 if "registers" in line or "spill" in line or "entry" in line:
-                    print("  " + line.strip(), flush=True)
+                    print(f"  [{mode}] " + line.strip(), flush=True)
 
     with phase("2_kernels_vs_plain"):
-        metrics = kernel_checks(dev)
+        metrics = kernel_checks(dev, "cios")
+        torch.cuda.empty_cache()
+        metrics_mma = kernel_checks(dev, "mma")
+        check(all(m["max_abs_err"] == 0 for m in metrics_mma.values()),
+              "an MMA-built kernel differs from its plain version")
+        print(f"  all {len(metrics_mma)} kernel instances of the mma build "
+              "equal their plain versions", flush=True)
+        mma_row = mma_field_checks(dev, metrics_mma["fr_mont_mul"]["ms"])
         torch.cuda.empty_cache()
 
     with phase("3_small_verifiable_prove"):
@@ -771,6 +1091,7 @@ def main() -> int:
 
         t0 = time.perf_counter()
         proof_fast = prover.prove(witness, r=R_BLIND, s=S_BLIND)
+        proof_pinned = proof_fast.to_json()
         torch.cuda.synchronize()
         print(f"  steady prove {time.perf_counter() - t0:.3f} s "
               f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
@@ -781,25 +1102,59 @@ def main() -> int:
               f"{json.dumps(base_prover.last_phase_ms)}", flush=True)
         check(proof_base.to_json() == proof_fast.to_json(),
               "the base-mode proof differs from the fast-mode proof")
-        del prover, base_prover, zk
+        del prover, base_prover, a, b, h, h_base, h_plain, outs
+        torch.cuda.empty_cache()
+
+    with phase("4b_fixed_base_prove"):
+        fixed_base_prove(dev, drive, zk, witness, expect, proof_pinned)
+        del zk, witness
         torch.cuda.empty_cache()
 
     with phase("5_ultragroth_small"):
         ultragroth_small(dev, r1cs, setup)
 
     with phase("6_ultragroth_full_width"):
-        ultragroth_full_width(dev, drive)
+        ug_setup, ug_circ, ug_wt, ug_prover = ultragroth_full_width(dev, drive)
+        uwtns = ug_circ.uwtns_bytes()
+        del ug_circ
+
+    with phase("6b_api_mma_prove"):
+        api_mma_prove(drive, mma_paths, ug_setup, uwtns, ug_wt, ug_prover)
+        del ug_prover
+        torch.cuda.empty_cache()
+
+    with phase("6c_server"):
+        server_check(ug_setup, uwtns)
+        del ug_setup, ug_wt, uwtns
+        torch.cuda.empty_cache()
+
+    with phase("6d_cli"):
+        cli_check()
 
     with phase("7_kernel_launches"):
         total = {k: sum(p[k] for p in paths.values()) for k in K.KERNELS}
-        need = {"groth16_2^20": [k for k in K.KERNELS if k not in (
-                    "fr_butterfly", "g1_madd_valid", "g2_madd_valid")],
+        prove_kernels = [k for k in K.KERNELS if k not in (
+            "fr_butterfly", "g1_madd_valid", "g2_madd_valid")]
+        need = {"groth16_2^20": prove_kernels,
                 "groth16_2^20_base": ["fr_butterfly"],
+                "groth16_2^20_fixed": [k for k in prove_kernels
+                                       if "horner" not in k],
                 "ultragroth_2^20": [k for k in K.KERNELS
-                                    if k != "fr_butterfly"]}
+                                    if k != "fr_butterfly"],
+                "ultragroth_2^20_api_mma": prove_kernels}
         for name, kernels in need.items():
             missing = [k for k in kernels if paths[name][k] == 0]
             check(not missing, f"kernels never launched on {name}: {missing}")
+        check(not any(paths["groth16_2^20_fixed"][k] for k in
+                      ("g1_horner_scale", "g2_horner_scale")),
+              "the fixed-base MSMs ran a Horner combine")
+        api_mma = mma_paths["ultragroth_2^20_api_mma"]
+        missing = [k for k in prove_kernels if api_mma[k] == 0]
+        check(not missing, f"MMA builds never launched on the mma path: "
+              f"{missing}")
+        check(sum(api_mma.values()) == sum(
+            paths["ultragroth_2^20_api_mma"].values()),
+            "the mma path launched kernels of the cios build")
         missing = [k for k, v in total.items() if v == 0]
         check(not missing, f"kernels never launched: {missing}")
         rows = []
@@ -808,7 +1163,15 @@ def main() -> int:
                          "replaces": replaces, "launches": total[name],
                          "launches_by_path": {p: c[name]
                                               for p, c in paths.items()},
-                         **metrics[name]})
+                         **metrics[name],
+                         "mma_ms": metrics_mma[name]["ms"]})
+        mma_launches = {p: sum(c.values()) for p, c in mma_paths.items()}
+        name, source, replaces = K.MMA_ROW
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces,
+                     "launches": sum(mma_launches.values()),
+                     "launches_by_path": mma_launches,
+                     "launches_by_kernel": api_mma, **mma_row})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain version on
 the same inputs, and small Groth16 and UltraGroth proves on the card
-against the port's CPU proves.  Marked `cuda`; skipped where no CUDA
-device is present.
+against the port's CPU proves (also in the mma field mode, over fixed-base
+tables, and through the proof server with /cancel).  Marked `cuda`;
+skipped where no CUDA device is present.
 
 Imports no JAX, so it runs where only the port is installed:
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
@@ -185,3 +186,71 @@ def test_small_ultragroth_prove_on_card_matches_cpu(dev):
     vk = ug.UltraGrothVerificationKey.from_json_dict(setup.vk_json)
     assert ug.verify(proof, ug.public_signals(w_final, zk.n_public,
                                               zk.rand_indx), vk)
+
+
+def test_small_prove_in_mma_mode_matches_cpu(dev, monkeypatch):
+    """ULTRAGROTH_MXU_FIELD=1: every kernel of the prove is of the mma
+    build (the tensor-core reduction) and the proof equals the CPU's; a
+    fixed-base table (ULTRAGROTH_FIXED_MSM_MB) changes nothing either."""
+    r1cs, w = square_chain_circuit(60, seed=3)
+    setup = groth16_setup(r1cs, seed=9)
+    zk = parse_groth16_zkey(np.frombuffer(setup.zkey_bytes, np.uint8))
+    monkeypatch.setenv("ULTRAGROTH_MXU_FIELD", "1")
+    monkeypatch.setenv("ULTRAGROTH_FIXED_MSM_MB", "1")
+    prover = TorchGroth16Prover(zk)
+    monkeypatch.delenv("ULTRAGROTH_MXU_FIELD")
+    assert prover.field_mode == "mma" and prover.fixed
+    K.reset_launch_counts()
+    on_card = prover.prove(w, r=11, s=22)
+    assert sum(K.launch_counts("cios").values()) == 0
+    assert K.launch_counts("mma")["g2_madd_fast"] > 0
+    on_cpu = TorchGroth16Prover(zk, device="cpu").prove(w, r=11, s=22)
+    assert on_card.to_json() == on_cpu.to_json()
+
+
+def test_server_cancel_on_card(dev, tmp_path):
+    """The proof server on the card: a POSTed witness gives a verifying
+    proof; /cancel during the next prove gives `aborted`."""
+    import json
+    import threading
+    import time
+    import urllib.request
+    from ultragroth_tpu_torch import api, constants as C
+    from ultragroth_tpu_torch.io.binfile import pack_binfile
+    from ultragroth_tpu_torch.server import serve
+    r1cs, w = square_chain_circuit(2000, seed=3)
+    setup = groth16_setup(r1cs, seed=9)
+    (tmp_path / "sq.zkey").write_bytes(setup.zkey_bytes)
+    sec1 = ((32).to_bytes(4, "little") + R.to_bytes(32, "little")
+            + r1cs.n_vars.to_bytes(4, "little"))
+    wtns = pack_binfile(C.WTNS_MAGIC, 2, [(1, sec1), (2, w.tobytes())])
+    fp, httpd = serve([str(tmp_path / "sq.zkey")], port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def post(path, data=b"", octet=False):
+        hdr = {"Content-Type": "application/octet-stream"} if octet else {}
+        urllib.request.urlopen(urllib.request.Request(f"{base}{path}",
+                                                      data=data, headers=hdr))
+
+    def wait(done):
+        for _ in range(6000):
+            st = json.load(urllib.request.urlopen(f"{base}/status"))
+            if done(st["status"]):
+                return st
+            time.sleep(0.01)
+        raise AssertionError(st)
+
+    try:
+        post("/input/sq", wtns, octet=True)
+        st = wait(lambda s: s not in ("busy", "ready"))
+        assert st["status"] == "success", st
+        assert api.groth16_verify(st["proof"], st["pubData"],
+                                  json.dumps(setup.vk_json)) \
+            == api.VERIFIER_VALID_PROOF
+        post("/input/sq", wtns, octet=True)
+        post("/cancel")
+        st = wait(lambda s: s != "busy")
+        assert st["status"] == "aborted" and fp.proof is None, st
+    finally:
+        httpd.shutdown()

@@ -140,8 +140,11 @@ def test_port_imports_without_jax():
         "    TorchGroth16Prover, TorchUltraGrothProver)\n"
         "from ultragroth_tpu_torch.protocol import ultragroth\n"
         "from ultragroth_tpu_torch.ops import kernels, msm, ntt, _build\n"
+        "from ultragroth_tpu_torch.ops import mxufield\n"
         "from ultragroth_tpu_torch.ops.ntt import ntt_fast, ntt_mode\n"
+        "from ultragroth_tpu_torch.ops.msm import msm_fixed, msm_fixed_table\n"
         "from ultragroth_tpu_torch import convert, keccak, trace\n"
+        "from ultragroth_tpu_torch import api, cli, log, runtime, server\n"
         "from ultragroth_tpu_torch.testkit import setup, circuits, dsetup\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or\n"

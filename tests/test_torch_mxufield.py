@@ -1,0 +1,182 @@
+"""PyTorch port: the MMA field (K8, the twin of `ultragroth_tpu/ops/
+mxufield.py:mont_mul_mxu`).
+
+`mont_mul_mma_plain` against the JAX package's `mont_mul_mxu` (called
+eagerly, as tests/test_mxu_field.py does) and against the port's CIOS
+product, Fr and Fq, random values with the edges and an `a < 2^256`
+operand; then the g++ builds of `csrc/mma_field.cuh`: its lane-side steps
+with plain-loop tile products, and, built with -DUG_MMA_FIELD=1, every
+kernel's branch-free lane body over that product, held bit for bit
+against the plain versions (the same checks as tests/test_torch_kernels.py
+runs on the CIOS build).  Exact integer comparisons throughout.
+"""
+import ctypes
+import os
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ultragroth_tpu.ops.field import fq as jfq, fr as jfr
+from ultragroth_tpu.ops.mxufield import mont_mul_mxu
+from ultragroth_tpu_torch import convert
+from ultragroth_tpu_torch.constants import FQ_MODULUS as Q, FR_MODULUS as R
+from ultragroth_tpu_torch.ops import kernels as K
+from ultragroth_tpu_torch.ops import limbs as lb
+from ultragroth_tpu_torch.ops import mxufield
+from ultragroth_tpu_torch.ops.field import fq, fr
+from ultragroth_tpu_torch.ops.mxufield import mont_mul_mma_plain
+
+from tests.test_torch_field import REPO, sample
+from tests.test_torch_kernels import (
+    _Args, test_cg_stage_body_matches_plain as _cg_stage_body,
+    test_curve_lane_bodies_match_plain as _curve_bodies,
+    test_fr_lane_bodies_match_plain as _fr_bodies,
+    test_madd_valid_lane_body_matches_plain as _madd_valid_body)
+
+FIELDS = {"fr": (fr, jfr, R), "fq": (fq, jfq, Q)}
+
+
+def _operands(p, n, seed):
+    """(a, b) value lists: canonical values with the edges 0, 1, p - 1, a
+    lane of a < 2^256 against b < p, and lanes with both in [p, 2p) (the
+    lazy Fq values)."""
+    a = sample(p, n, seed)
+    b = sample(p, n, seed + 1)[::-1]
+    rng = np.random.default_rng(seed)
+    a[-4:] = [(1 << 256) - 1, int.from_bytes(rng.bytes(32), "little"),
+              p + 5, 2 * p - 1]
+    b[-4:] = [p - 1, b[-3], 2 * p - 2, p + 7]
+    return a, b
+
+
+def _want(p, a, b):
+    rinv = pow(1 << 256, -1, p)
+    return [x * y * rinv % p for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mont_mul_mma_plain_matches_jax_mxu(name):
+    """The JAX form (f32 byte limbs, Toeplitz dots) and the port's plain
+    form of the same algorithm agree bit for bit, 48 lanes."""
+    port_f, jax_f, p = FIELDS[name]
+    a, b = _operands(p, 48, seed=3 if name == "fr" else 4)
+    ta, tb = lb.ints_to_planes(a), lb.ints_to_planes(b)
+    got = mont_mul_mma_plain(port_f(), ta, tb)
+    want = mont_mul_mxu(jax_f(), jnp.asarray(convert.from_torch(ta)),
+                        jnp.asarray(convert.from_torch(tb)))
+    assert torch.equal(got, convert.to_torch(np.asarray(want)))
+    assert lb.planes_to_ints(got) == _want(p, a, b)
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mont_mul_mma_plain_matches_cios(name):
+    """Against the port's CIOS product (canonical), int64 and int32
+    storage, 256 lanes."""
+    port_f, _, p = FIELDS[name]
+    a, b = _operands(p, 256, seed=7)
+    ta, tb = lb.ints_to_planes(a), lb.ints_to_planes(b)
+    got = mont_mul_mma_plain(port_f(), ta, tb)
+    assert torch.equal(got, port_f().mont_mul(ta, tb))
+    got32 = mont_mul_mma_plain(port_f(), lb.narrow(ta, torch.int32),
+                               lb.narrow(tb, torch.int32))
+    assert got32.dtype == torch.int32 and torch.equal(lb.widen(got32), got)
+
+
+def test_mxu_flag_and_field_mode(monkeypatch):
+    for value, on in (("", False), ("0", False), ("1", True), ("yes", True)):
+        monkeypatch.setenv("ULTRAGROTH_MXU_FIELD", value)
+        assert mxufield.enabled() is on
+        assert mxufield.field_mode() == ("mma" if on else "cios")
+    with pytest.raises(ValueError):
+        with K.field_mode("f32"):
+            pass
+    with K.field_mode("mma"):
+        assert K.current_field_mode() == "mma"
+    assert K.current_field_mode() == "cios"
+
+
+def test_cpu_ignores_the_field_mode(monkeypatch):
+    """On the CPU the flag changes nothing (the JAX package's plain path
+    never reaches mont_mul_mxu either): a prover records the mode it read
+    when it was built, and a wrapper on CPU tensors runs its plain version
+    in either mode and launches nothing."""
+    from ultragroth_tpu_torch.io.zkey import parse_groth16_zkey
+    from ultragroth_tpu_torch.protocol.prover import TorchGroth16Prover
+    from ultragroth_tpu_torch.testkit.circuits import square_chain_circuit
+    from ultragroth_tpu_torch.testkit.setup import groth16_setup
+    r1cs, _ = square_chain_circuit(5, seed=11)
+    zk = parse_groth16_zkey(np.frombuffer(groth16_setup(r1cs, seed=12)
+                                          .zkey_bytes, np.uint8))
+    monkeypatch.setenv("ULTRAGROTH_MXU_FIELD", "1")
+    assert TorchGroth16Prover(zk, device="cpu").field_mode == "mma"
+    monkeypatch.delenv("ULTRAGROTH_MXU_FIELD")
+    assert TorchGroth16Prover(zk, device="cpu").field_mode == "cios"
+    a = lb.ints_to_planes(sample(R, 16, seed=1))
+    b = lb.ints_to_planes(sample(R, 16, seed=2))
+    K.reset_launch_counts()
+    with K.field_mode("mma"):
+        got = K.fr_mont_mul(a, b)
+    assert torch.equal(got, K.fr_mont_mul_plain(a, b))
+    assert sum(K.launch_counts().values()) == 0
+
+
+# -- mma_field.cuh built for the host --------------------------------------
+
+def _harness(tmp_path_factory, defines):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not available to build the host harness")
+    out = tmp_path_factory.mktemp("harness") / "libug_host.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC",
+                    *defines, "-o", str(out),
+                    str(REPO / "ultragroth_tpu_torch" / "csrc" /
+                        "host_harness.cpp")], check=True)
+    return ctypes.CDLL(str(out), mode=os.RTLD_LOCAL)
+
+
+@pytest.fixture(scope="module")
+def mma_host_lib(tmp_path_factory):
+    """The harness of the MMA build: every lane body branch-free, every
+    product mma_field.cuh's (tile products as plain loops)."""
+    lib = _harness(tmp_path_factory, ["-DUG_MMA_FIELD=1"])
+    assert lib.ugh_mma_build() == 1
+    return lib
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mma_lane_steps_match_plain(mma_host_lib, name):
+    """mma_field.cuh's lane-side steps (schoolbook by carry chains, byte
+    ripple, high half, conditional subtract on the 17th limb) with plain
+    tile loops, against the plain version, and the Fq probe's lane body."""
+    port_f, _, p = FIELDS[name]
+    n = 64
+    a, b = _operands(p, n, seed=21)
+    A = _Args()
+    ta, tb = lb.ints_to_planes(a), lb.ints_to_planes(b)
+    out = np.zeros((8, n), np.uint32)
+    mma_host_lib.ugh_mma_mont_mul(ctypes.c_int(0 if name == "fr" else 1),
+                                  A.p(A.u32(ta)), A.p(A.u32(tb)), A.p(out),
+                                  ctypes.c_int64(n))
+    np.testing.assert_array_equal(out, A.u32(mont_mul_mma_plain(port_f(), ta,
+                                                                tb)))
+    if name == "fq":
+        out = np.zeros((8, n), np.uint32)
+        mma_host_lib.ugh_fq_mont_mul(A.p(A.u32(ta)), A.p(A.u32(tb)),
+                                     A.p(out), ctypes.c_int64(n))
+        np.testing.assert_array_equal(out, A.u32(K.fq_mont_mul_plain(ta,
+                                                                     tb)))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_mma_build_curve_lane_bodies_match_plain(mma_host_lib, group):
+    _curve_bodies(mma_host_lib, group)
+    _madd_valid_body(mma_host_lib, group)
+
+
+def test_mma_build_fr_lane_bodies_match_plain(mma_host_lib):
+    _fr_bodies(mma_host_lib)
+    for log_m, cols in ((1, 3), (4, 5)):
+        _cg_stage_body(mma_host_lib, log_m, cols)

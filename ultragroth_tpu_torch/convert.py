@@ -56,6 +56,22 @@ def g2_points_from_jax(x, y, inf, device="cpu"):
             torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
 
 
+def fixed_table_from_jax(packed, inf, device="cpu"):
+    """The JAX package's fixed-base table (`ops/msm.py:msm_fixed_table`:
+    packed [K * 16, W * Npad], rows x then y, each coordinate component
+    16 planes; K = 2 for G1, 4 for G2) and its inf [Npad] -> the port's
+    (table [2, 8, W * Npad] or [2, 2, 8, W * Npad], inf)."""
+    p = np.asarray(packed, dtype=np.uint32)
+    comps = [to_torch(p[16 * k:16 * (k + 1)], device)
+             for k in range(p.shape[0] // 16)]
+    if len(comps) == 2:
+        table = torch.stack(comps)
+    else:
+        table = torch.stack([torch.stack(comps[:2]), torch.stack(comps[2:])])
+    return (table.contiguous(),
+            torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
+
+
 G1_SECTIONS = ("points_a", "points_b1", "points_c", "points_h",
                "round_points_c", "final_points_c")
 INT_ARRAYS = ("coef_m", "coef_c", "coef_s", "round_indexes", "final_indexes")

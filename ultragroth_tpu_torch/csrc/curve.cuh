@@ -8,6 +8,15 @@
 // version in ops/curve.py lane for lane.  Each lane body is
 // __host__ __device__: the .cu files wrap it in one __global__ function per
 // kernel and group, and the tests' g++ harness runs it on the host.
+//
+// In the MMA build (UG_MMA_FIELD, field.cuh) every product is warp-
+// collective, so a lane body must reach each product together with the
+// other 31 lanes of its warp: the data-dependent doublings are computed and
+// selected (as the JAX package's add_unified / madd_unified do), the fast
+// madd runs for lanes past their count and is discarded, Horner runs the
+// same number of masked doublings on every lane, and a lane past the end
+// (`live` false) computes a clamped lane's values and stores nothing.  The
+// CIOS build keeps its branches.
 #pragma once
 #include "field.cuh"
 
@@ -73,7 +82,12 @@ UG_HD xyzz<F> madd_unified(const xyzz<F>& p, const typename F::E& qx,
   E zq = q_inf ? F::zero() : F::one_mont();
   xyzz<F> q = {qx, qy, zq, zq};
   xyzz<F> out = added;
+#if UG_MMA_FIELD
+  const xyzz<F> d = dbl<F>(q);
+  if (same_x && same_y) out = d;
+#else
   if (same_x && same_y) out = dbl<F>(q);
+#endif
   if (same_x && !same_y && !p_inf && !q_inf) out = inf_xyzz<F>();
   if (q_inf) out = p;
   if (p_inf) out = q;
@@ -107,7 +121,12 @@ UG_HD xyzz<F> add_unified(const xyzz<F>& p, const xyzz<F>& q) {
   E zzz_a = F::mul(p.zzz, q.zzz);
   bool same_x, same_y;
   xyzz<F> out = add_core<F>(u1, u2, s1, s2, zz_a, zzz_a, same_x, same_y);
+#if UG_MMA_FIELD
+  const xyzz<F> d = dbl<F>(p);
+  if (same_x && same_y) out = d;
+#else
   if (same_x && same_y) out = dbl<F>(p);
+#endif
   if (same_x && !same_y && !p_inf && !q_inf) out = inf_xyzz<F>();
   if (q_inf) out = p;
   if (p_inf) out = q;
@@ -155,15 +174,23 @@ template <class F>
 UG_HD bool lane_madd_fast(const uint32_t* acc, uint32_t* out, const uint32_t* table,
                           int64_t T, const int32_t* orders, const int32_t* gidx,
                           const int32_t* stride, const int32_t* cnt, int32_t t,
-                          int64_t n, int64_t i) {
+                          int64_t n, int64_t i, bool live = true) {
   xyzz<F> a = load_xyzz<F>(acc, n, i);
   bool bad = false;
+#if UG_MMA_FIELD
+  typename F::E qx, qy;
+  const bool valid = gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
+  const xyzz<F> s = madd_fast<F>(a, qx, qy, bad);
+  if (valid) a = s;
+  bad = bad && valid;
+#else
   if (t < cnt[i]) {
     typename F::E qx, qy;
     gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
     a = madd_fast<F>(a, qx, qy, bad);
   }
-  store_xyzz<F>(out, n, i, a);
+#endif
+  if (live) store_xyzz<F>(out, n, i, a);
   return bad;
 }
 
@@ -172,11 +199,12 @@ template <class F>
 UG_HD void lane_madd_signed(const uint32_t* acc, uint32_t* out, const uint32_t* table,
                             int64_t T, const int32_t* orders, const int32_t* gidx,
                             const int32_t* stride, const int32_t* cnt, int32_t t,
-                            int64_t n, int64_t i) {
+                            int64_t n, int64_t i, bool live = true) {
   xyzz<F> a = load_xyzz<F>(acc, n, i);
   typename F::E qx, qy;
   bool valid = gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
-  store_xyzz<F>(out, n, i, madd_unified<F>(a, qx, qy, !valid));
+  const xyzz<F> s = madd_unified<F>(a, qx, qy, !valid);
+  if (live) store_xyzz<F>(out, n, i, s);
 }
 
 // curve_madd_valid, fused with the fixed-base gather of the device set-up
@@ -188,42 +216,59 @@ UG_HD void lane_madd_signed(const uint32_t* acc, uint32_t* out, const uint32_t* 
 template <class F>
 UG_HD void lane_madd_valid(const uint32_t* acc, uint32_t* out, const uint32_t* table,
                            const uint8_t* tinf, int64_t T, const uint32_t* scalars,
-                           int w, int64_t n, int64_t i) {
+                           int w, int64_t n, int64_t i, bool live = true) {
   xyzz<F> a = load_xyzz<F>(acc, n, i);
   const uint32_t d = (scalars[(int64_t)(w >> 2) * n + i] >> (8 * (w & 3))) & 0xFFu;
   const int64_t e = 256 * (int64_t)w + d;
   typename F::E qx, qy;
   load_elem(table, T, e, 0, qx);
   load_elem(table, T, e, 1, qy);
-  store_xyzz<F>(out, n, i, madd_unified<F>(a, qx, qy, tinf[e] != 0));
+  const xyzz<F> s = madd_unified<F>(a, qx, qy, tinf[e] != 0);
+  if (live) store_xyzz<F>(out, n, i, s);
 }
 
 // curve_add_where: out = ok ? a + b : a (ok == nullptr: every lane)
 template <class F>
 UG_HD void lane_add_where(const uint32_t* a, const uint32_t* b, const uint8_t* ok,
-                          uint32_t* out, int64_t n, int64_t i) {
+                          uint32_t* out, int64_t n, int64_t i, bool live = true) {
   xyzz<F> pa = load_xyzz<F>(a, n, i);
+#if UG_MMA_FIELD
+  const xyzz<F> s = add_unified<F>(pa, load_xyzz<F>(b, n, i));
+  if (ok == nullptr || ok[i]) pa = s;
+#else
   if (ok == nullptr || ok[i]) pa = add_unified<F>(pa, load_xyzz<F>(b, n, i));
-  store_xyzz<F>(out, n, i, pa);
+#endif
+  if (live) store_xyzz<F>(out, n, i, pa);
 }
 
-// curve_horner_scale: lane w doubled c*w times (in place)
+// curve_horner_scale: lane w doubled c*w times (in place).  The MMA build
+// runs c*(n-1) doublings on every lane and keeps the first c*w
+// (ultragroth_tpu/ops/kernels.py:133-169, the masked loop of the TPU kernel).
 template <class F>
-UG_HD void lane_horner(uint32_t* pts, int64_t n, int c, int64_t i) {
+UG_HD void lane_horner(uint32_t* pts, int64_t n, int c, int64_t i, bool live = true) {
   xyzz<F> p = load_xyzz<F>(pts, n, i);
   const int64_t k = (int64_t)c * i;
+#if UG_MMA_FIELD
+  const int64_t steps = (int64_t)c * (n - 1);
+  for (int64_t s = 0; s < steps; s++) {
+    const xyzz<F> d = dbl<F>(p);
+    if (s < k) p = d;
+  }
+#else
   for (int64_t s = 0; s < k; s++) p = dbl<F>(p);
-  store_xyzz<F>(pts, n, i, p);
+#endif
+  if (live) store_xyzz<F>(pts, n, i, p);
 }
 
 // fr_butterfly, one DIT stage in place over a [8, n] array: pair
 // (u, w) = (blk*2h + j, blk*2h + h + j) -> (u + w*tw[j], u - w*tw[j])
 UG_HD void lane_butterfly(uint32_t* a, const uint32_t* tw, int64_t n, int64_t half,
-                          int64_t i) {
+                          int64_t i, bool live = true) {
   int64_t blk = i / half, j = i - blk * half;
   int64_t iu = blk * 2 * half + j, iw = iu + half;
   fe u = load(a, n, iu, 0);
   fe t = Fr::mul(load(a, n, iw, 0), load(tw, half, j, 0));
+  if (!live) return;
   store(a, n, iu, 0, Fr::add(u, t));
   store(a, n, iw, 0, Fr::sub(u, t));
 }
@@ -253,9 +298,18 @@ UG_HD void cg_store(uint32_t* a, int64_t n, int64_t cols, int64_t b, const fe& h
 
 // fr_mont_mul: out = a * b * R^-1, b broadcast over lanes when b_n == 1
 UG_HD void lane_fr_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
-                       int64_t n, int64_t b_n, int64_t i) {
+                       int64_t n, int64_t b_n, int64_t i, bool live = true) {
   fe bb = b_n == 1 ? load(b, 1, 0, 0) : load(b, n, i, 0);
-  store(out, n, i, 0, Fr::mul(load(a, n, i, 0), bb));
+  const fe r = Fr::mul(load(a, n, i, 0), bb);
+  if (live) store(out, n, i, 0, r);
+}
+
+// A probe of the field alone (no TPU kernel): out = canonical a * b * R^-1
+// over Fq, for the checks of the MMA product on the card and in the tests.
+UG_HD void lane_fq_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                       int64_t n, int64_t i, bool live = true) {
+  const fe r = Fq::exit(Fq::mul(load(a, n, i, 0), load(b, n, i, 0)));
+  if (live) store(out, n, i, 0, r);
 }
 
 }  // namespace ug

@@ -19,8 +19,28 @@
 // primitives are single PTX instructions; on the host (the g++ harness of
 // the tests, and nvcc's host pass) they are an exact emulation of the same
 // carry flag, so the very same CIOS code can be checked without a card.
+//
+// Two builds of every kernel source: the CIOS build (the default) and the
+// MMA build (-DUG_MMA_FIELD=1), whose mont_mul is the warp-collective
+// product of mma_field.cuh with the reduction on the tensor cores (the twin
+// of ULTRAGROTH_MXU_FIELD).  Its launchers carry the prefix ugm_ instead of
+// ug_ (UG_SYM), so both libraries can be loaded side by side.
 #pragma once
 #include <stdint.h>
+
+#ifndef UG_MMA_FIELD
+#define UG_MMA_FIELD 0
+#endif
+
+#if UG_MMA_FIELD
+#define UG_SYM(x) ugm_##x
+#else
+#define UG_SYM(x) ug_##x
+#endif
+
+#if defined(__CUDACC__) && UG_MMA_FIELD
+#include <mma.h>
+#endif
 
 #if defined(__CUDACC__)
 #define UG_HD __host__ __device__ __forceinline__
@@ -94,6 +114,10 @@ struct FrParams {
     const uint32_t P[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
                            0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
     return P[i]; }
+  UG_HD static uint32_t np(int i) {   // -r^-1 mod 2^256 (the MMA field)
+    const uint32_t P[8] = {0xefffffffu, 0xc2e1f593u, 0x4c6911b3u, 0x6586864bu,
+                           0x99062391u, 0xe39a9828u, 0x0d8341b2u, 0x73f82f1du};
+    return P[i]; }
   UG_HD static uint32_t p2(int i) {
     const uint32_t P[8] = {0xe0000002u, 0x87c3eb27u, 0xf372e122u, 0x5067d090u,
                            0x0302b0bau, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
@@ -111,6 +135,10 @@ struct FqParams {
     const uint32_t P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
                            0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
     return P[i]; }
+  UG_HD static uint32_t np(int i) {   // -q^-1 mod 2^256 (the MMA field)
+    const uint32_t P[8] = {0xe4866389u, 0x87d20782u, 0x1eca6ac9u, 0x9ede7d65u,
+                           0x1833da80u, 0xd8afcbd0u, 0x91888c6bu, 0xf57a22b7u};
+    return P[i]; }
   UG_HD static uint32_t p2(int i) {
     const uint32_t P[8] = {0xb0f9fa8eu, 0x7841182du, 0xd0e3951au, 0x2f02d522u,
                            0x0302b0bbu, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
@@ -120,6 +148,12 @@ struct FqParams {
                            0x7879462cu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
     return P[i]; }
 };
+
+}  // namespace ug
+
+#include "mma_field.cuh"
+
+namespace ug {
 
 // ---------------------------------------------------------------------------
 // Prime field over Params: add / sub / neg / mont_mul / zero test / canon.
@@ -189,7 +223,15 @@ struct Field {
   // words; each outer step adds a * b_i and m * p as a low-half chain and a
   // high-half chain, then drops the zero word.  Output < 2p whenever
   // a < 2^256 and b < 2p (4p < 2^256); Fr subtracts once more to [0, p).
+  // The MMA build takes mma_field.cuh's product instead (canonical output,
+  // which is a valid lazy value too): on the device the warp-collective
+  // one, on the host its plain-loop reference.
   UG_HD static fe mul(const fe& a, const fe& b) {
+#if UG_MMA_FIELD && defined(__CUDA_ARCH__)
+    return mont_mul_mma_dev<Pm>(a, b);
+#elif UG_MMA_FIELD
+    return mont_mul_mma_ref<Pm>(a, b);
+#else
     uint32_t t[10];
 #pragma unroll
     for (int i = 0; i < 10; i++) t[i] = 0;
@@ -224,6 +266,7 @@ struct Field {
 #pragma unroll
     for (int i = 0; i < 8; i++) r.v[i] = t[i];
     return Pm::kLazy ? r : canon(r);
+#endif
   }
 
   UG_HD static fe sqr(const fe& a) { return mul(a, a); }

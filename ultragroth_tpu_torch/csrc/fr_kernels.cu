@@ -10,38 +10,42 @@
 // integer throughput.  First, simple design: one thread per lane (per
 // butterfly pair), CIOS in registers, the stage applied in place so the
 // per-stage NTT writes no stacked copy; the twiddle of pair j is read from
-// a [8, half] table (tw[j] for every block of the stage).
-#include <cuda_runtime.h>
-#include "curve.cuh"
+// a [8, half] table (tw[j] for every block of the stage).  The MMA build
+// (UG_MMA_FIELD) of the same kernels: launch_common.cuh.
+#include "launch_common.cuh"
 
 #define UG_FR_THREADS 256
 
-__global__ void ug_fr_mont_mul_k(const uint32_t* a, const uint32_t* b,
-                                 uint32_t* out, int64_t n, int64_t b_n) {
+__global__ void UG_SYM(fr_mont_mul_k)(const uint32_t* a, const uint32_t* b,
+                                      uint32_t* out, int64_t n, int64_t b_n) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  ug::lane_fr_mul(a, b, out, n, b_n, i);
+  UG_LANE_BEGIN(ug::FrParams, i, n);
+  ug::lane_fr_mul(a, b, out, n, b_n, i, live);
 }
 
-__global__ void ug_fr_butterfly_k(uint32_t* a, const uint32_t* tw, int64_t n,
-                                  int64_t half) {
+__global__ void UG_SYM(fr_butterfly_k)(uint32_t* a, const uint32_t* tw, int64_t n,
+                                       int64_t half) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n / 2) return;
-  ug::lane_butterfly(a, tw, n, half, i);
+  UG_LANE_BEGIN(ug::FrParams, i, n / 2);
+  ug::lane_butterfly(a, tw, n, half, i, live);
 }
 
-extern "C" int ug_fr_mont_mul(const void* a, const void* b, void* out,
-                              int64_t n, int64_t b_n, void* stream) {
-  unsigned blocks = (unsigned)((n + UG_FR_THREADS - 1) / UG_FR_THREADS);
-  ug_fr_mont_mul_k<<<blocks, UG_FR_THREADS, 0, (cudaStream_t)stream>>>(
+extern "C" int UG_SYM(fr_mont_mul)(const void* a, const void* b, void* out,
+                                   int64_t n, int64_t b_n, void* stream) {
+  int smem;
+  if (int rc = ug_kernel_smem(UG_SYM(fr_mont_mul_k), UG_FR_THREADS, &smem)) return rc;
+  UG_SYM(fr_mont_mul_k)<<<ug_grid(n, UG_FR_THREADS), UG_FR_THREADS, smem,
+                          (cudaStream_t)stream>>>(
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, b_n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ug_fr_butterfly(void* a, const void* tw, int64_t n,
-                               int64_t half, void* stream) {
-  unsigned blocks = (unsigned)((n / 2 + UG_FR_THREADS - 1) / UG_FR_THREADS);
-  ug_fr_butterfly_k<<<blocks, UG_FR_THREADS, 0, (cudaStream_t)stream>>>(
+extern "C" int UG_SYM(fr_butterfly)(void* a, const void* tw, int64_t n,
+                                    int64_t half, void* stream) {
+  int smem;
+  if (int rc = ug_kernel_smem(UG_SYM(fr_butterfly_k), UG_FR_THREADS, &smem)) return rc;
+  UG_SYM(fr_butterfly_k)<<<ug_grid(n / 2, UG_FR_THREADS), UG_FR_THREADS, smem,
+                           (cudaStream_t)stream>>>(
       (uint32_t*)a, (const uint32_t*)tw, n, half);
   return (int)cudaGetLastError();
 }
@@ -77,14 +81,19 @@ extern "C" int ug_fr_butterfly(void* a, const void* tw, int64_t n,
 // design: the kernel does ~130 multiply-adds per byte and is bound by its
 // multiplies, not by these loads.  Twiddles are read from global memory
 // (the table is 160 KB at the cap; threads of one i share one word).
+// In the MMA build the 16 warps' reduction tiles (~83 KB) come on top of
+// the 32 KB, as dynamic shared memory (one block per SM).
 // ---------------------------------------------------------------------------
 #define UG_CG_MAX_LOG 10
 #define UG_CG_ELEMS (1 << UG_CG_MAX_LOG)
 
 __global__ void __launch_bounds__(UG_CG_ELEMS / 2)
-ug_fr_cg_ntt_k(const uint32_t* x, const uint32_t* tw, uint32_t* y, int log_m,
-               int64_t cb, int cols) {
+UG_SYM(fr_cg_ntt_k)(const uint32_t* x, const uint32_t* tw, uint32_t* y, int log_m,
+                    int64_t cb, int cols) {
   __shared__ uint32_t s[8 * UG_CG_ELEMS];
+#if UG_MMA_FIELD
+  ug::mma_block_init<ug::FrParams>();
+#endif
   const int m = 1 << log_m;
   const int nb = cols * m;                      // elements of this block
   const int64_t c0 = (int64_t)blockIdx.x * cols;
@@ -95,7 +104,9 @@ ug_fr_cg_ntt_k(const uint32_t* x, const uint32_t* tw, uint32_t* y, int log_m,
   }
   __syncthreads();
   const int b = threadIdx.x;
-  const bool active = b < nb / 2;
+  // nb / 2 == blockDim.x: every thread has a butterfly (the MMA build needs
+  // all of them at every product)
+  const bool active = UG_MMA_FIELD || b < nb / 2;
   for (int st = 0; st < log_m; st++) {
     ug::fe hi, lo;
     if (active)
@@ -113,12 +124,14 @@ ug_fr_cg_ntt_k(const uint32_t* x, const uint32_t* tw, uint32_t* y, int log_m,
   }
 }
 
-extern "C" int ug_fr_cg_ntt(const void* x, const void* tw, void* y, int log_m,
-                            int64_t cb, void* stream) {
+extern "C" int UG_SYM(fr_cg_ntt)(const void* x, const void* tw, void* y, int log_m,
+                                 int64_t cb, void* stream) {
   if (log_m < 1 || log_m > UG_CG_MAX_LOG) return (int)cudaErrorInvalidValue;
   const int cols = UG_CG_ELEMS >> log_m;
   const int64_t blocks = (cb + cols - 1) / cols;
-  ug_fr_cg_ntt_k<<<(unsigned)blocks, UG_CG_ELEMS / 2, 0, (cudaStream_t)stream>>>(
+  int smem;
+  if (int rc = ug_kernel_smem(UG_SYM(fr_cg_ntt_k), UG_CG_ELEMS / 2, &smem)) return rc;
+  UG_SYM(fr_cg_ntt_k)<<<(unsigned)blocks, UG_CG_ELEMS / 2, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)y, log_m, cb, cols);
   return (int)cudaGetLastError();
 }

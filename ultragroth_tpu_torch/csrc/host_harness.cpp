@@ -2,6 +2,9 @@
 // the .cu files as a plain loop over lanes, with the carry-chain
 // primitives emulated (field.cuh).  The CPU tests build it to check the
 // kernels' arithmetic against the plain PyTorch versions without a card.
+// Built a second time with -DUG_MMA_FIELD=1, it runs the MMA build's lane
+// bodies (branch-free) over mma_field.cuh's product with plain loops in
+// place of the tensor-core tile products.
 #include "curve.cuh"
 
 #define UG_HOST_CURVE(G, F)                                                   \
@@ -85,3 +88,25 @@ extern "C" int ugh_fr_cg_stage(const void* in, void* out, const void* tw,
   }
   return 0;
 }
+
+extern "C" int ugh_fq_mont_mul(const void* a, const void* b, void* out, int64_t n) {
+  for (int64_t i = 0; i < n; i++)
+    ug::lane_fq_mul((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, i);
+  return 0;
+}
+
+// The MMA product alone (field 0: Fr, 1: Fq) on [8][n] planes, in either
+// build: mma_field.cuh's lane-side steps with plain-loop tile products.
+extern "C" int ugh_mma_mont_mul(int field, const void* a, const void* b, void* out,
+                                int64_t n) {
+  for (int64_t i = 0; i < n; i++) {
+    const ug::fe x = ug::load((const uint32_t*)a, n, i, 0);
+    const ug::fe y = ug::load((const uint32_t*)b, n, i, 0);
+    ug::store((uint32_t*)out, n, i, 0,
+              field == 0 ? ug::mont_mul_mma_ref<ug::FrParams>(x, y)
+                         : ug::mont_mul_mma_ref<ug::FqParams>(x, y));
+  }
+  return 0;
+}
+
+extern "C" int ugh_mma_build() { return UG_MMA_FIELD; }

@@ -9,12 +9,19 @@ each `csrc/*.cu` source is compiled once, at first use, by
          -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 with one `nvcc` process per source, all started together.  The output goes
-to `ultragroth_tpu_torch/_build/` (ignored by git) under a name that carries
-a hash of the sources and flags, so a changed source rebuilds and an
-unchanged one loads at once.  `nvcc`'s own report (registers, spills of
+to the compile cache (`runtime.compile_cache_dir()`: ULTRAGROTH_COMPILE_CACHE,
+default `ultragroth_tpu_torch/_build/`, ignored by git) under a name that
+carries a hash of the sources and flags, so a changed source rebuilds and
+an unchanged one loads at once.  `nvcc`'s own report (registers, spills of
 every kernel, from `-Xptxas -v`) is kept beside each library as
 `<name>-<hash>.log`.  No PyTorch header is compiled: a source with a plain
 C interface builds in seconds, one that includes PyTorch's takes minutes.
+
+Every source is built in two field modes (`MODES`): `cios`, the default,
+and `mma`, with -DUG_MMA_FIELD=1: the same kernels with the Montgomery
+reduction on the tensor cores (`csrc/mma_field.cuh`, the twin of
+ULTRAGROTH_MXU_FIELD), whose launchers are named ugm_* instead of ug_*.
+A mode's libraries are built at its first use (`load(mode)`).
 """
 from __future__ import annotations
 
@@ -29,14 +36,19 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("fr_kernels.cu", "g1_kernels.cu", "g2_kernels.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+MODES = {"cios": [], "mma": ["-DUG_MMA_FIELD=1"]}
 
 _lock = threading.Lock()
-_libs: dict | None = None
+_libs: dict = {}             # mode -> {launcher name: ctypes function}
 _handles: list = []          # the CDLLs stay loaded while their functions live
+
+
+def build_dir() -> Path:
+    from ..runtime import compile_cache_dir
+    return compile_cache_dir()
 
 
 def _nvcc() -> str:
@@ -49,8 +61,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest(source: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(source: str, mode: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + MODES[mode]).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh", ".inc"):
             h.update(f.name.encode())
@@ -59,39 +71,55 @@ def _digest(source: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> dict:
-    """Compile every stale source in parallel; return {source: .so path}.
+def library_path(source: str, mode: str = "cios") -> Path:
+    suffix = "" if mode == "cios" else f"_{mode}"
+    return build_dir() / f"{Path(source).stem}{suffix}-{_digest(source, mode)}.so"
+
+
+def build(modes=("cios",)) -> dict:
+    """Compile every stale (source, mode) in parallel; return {(source,
+    mode): .so path}.
 
     Prints the seconds the build took.  Raises with nvcc's output when a
     source does not compile."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     outs, procs = {}, []
-    for src in SOURCES:
-        so = BUILD_DIR / f"{Path(src).stem}-{_digest(src)}.so"
-        outs[src] = so
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-        log = so.with_suffix(".log")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs.append((src, so, tmp, log,
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT)))
-    failed = []
-    for src, so, tmp, log, proc in procs:
-        out, _ = proc.communicate()
-        log.write_bytes(out)
-        if proc.returncode != 0:
-            failed.append(f"{src}:\n{out.decode(errors='replace')}")
-        else:
-            os.replace(tmp, so)
+    for mode in modes:
+        for src in SOURCES:
+            so = library_path(src, mode)
+            outs[(src, mode)] = so
+            if not so.exists():
+                procs.append(_start(src, mode, so))
+    failed, done = [], {}
+    while len(done) < len(procs):
+        for src, so, tmp, log, proc in procs:
+            if src in done or proc.poll() is None:
+                continue
+            done[src] = time.perf_counter() - t0
+            out = log.read_bytes()
+            if proc.returncode != 0:
+                failed.append(f"{src}:\n{out.decode(errors='replace')}")
+            else:
+                os.replace(tmp, so)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     if procs:
         print(f"[ultragroth_tpu_torch] built {len(procs)} kernel sources in "
-              f"{time.perf_counter() - t0:.2f} s", file=sys.stderr, flush=True)
+              f"{time.perf_counter() - t0:.2f} s: " + ", ".join(
+                  f"{k} {v:.1f} s" for k, v in done.items()),
+              file=sys.stderr, flush=True)
     return outs
+
+
+def _start(src: str, mode: str, so: Path):
+    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
+    log = so.with_suffix(".log")
+    cmd = [_nvcc(), *NVCC_FLAGS, *MODES[mode], "-o", str(tmp), str(CSRC / src)]
+    with open(log, "wb") as out:     # nvcc's report goes straight to the log
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    return (f"{src} ({mode})", so, tmp, log, proc)
 
 
 _P = ctypes.c_void_p
@@ -101,6 +129,7 @@ _SIGNATURES = {
     "ug_fr_mont_mul": [_P, _P, _P, _I64, _I64, _P],
     "ug_fr_butterfly": [_P, _P, _I64, _I64, _P],
     "ug_fr_cg_ntt": [_P, _P, _P, ctypes.c_int, _I64, _P],
+    "ug_fq_mont_mul": [_P, _P, _P, _I64, _P],
 }
 for _g in ("g1", "g2"):
     _SIGNATURES.update({
@@ -115,23 +144,28 @@ for _g in ("g1", "g2"):
     })
 
 
-def load() -> dict:
-    """{launcher name: ctypes function}, building first if needed."""
-    global _libs
+def load(mode: str = "cios") -> dict:
+    """{launcher name (ug_*): ctypes function} of one field mode, building
+    first if needed.  The mma libraries export the same launchers as
+    ugm_*; they are returned under the ug_* names."""
+    if mode not in MODES:
+        raise ValueError(f"unknown field mode {mode!r}")
     with _lock:
-        if _libs is None:
+        if mode not in _libs:
             fns = {}
-            for so in build().values():
+            for so in build((mode,)).values():
                 lib = ctypes.CDLL(str(so))
                 _handles.append(lib)
                 for name, argtypes in _SIGNATURES.items():
-                    fn = getattr(lib, name, None)
+                    sym = name if mode == "cios" else "ugm_" + name[3:]
+                    fn = getattr(lib, sym, None)
                     if fn is not None:
                         fn.argtypes = argtypes
                         fn.restype = ctypes.c_int
                         fns[name] = fn
             missing = set(_SIGNATURES) - set(fns)
             if missing:
-                raise RuntimeError(f"kernel launchers missing: {sorted(missing)}")
-            _libs = fns
-        return _libs
+                raise RuntimeError(f"kernel launchers missing ({mode}): "
+                                   f"{sorted(missing)}")
+            _libs[mode] = fns
+        return _libs[mode]

@@ -9,6 +9,17 @@ current stream, or raises — there is no fallback from the card to the
 plain version.  Each wrapper adds one to its launch count where it
 launches, and nowhere else.
 
+Field mode.  Each kernel is built twice (`_build.MODES`): `cios` and
+`mma`, the latter with its Montgomery products' reduction on the tensor
+cores (`csrc/mma_field.cuh`, the twin of `ULTRAGROTH_MXU_FIELD`).  A
+wrapper launches the build of the mode current on its thread
+(`field_mode(...)`, default `cios`); a prover fixes its mode when it is
+built and runs under it.  Launches are counted per kernel and mode; the
+launches of MMA-built kernels are the launches of `mont_mul_mma`
+(`ultragroth_tpu/ops/mxufield.py:88`).  On the CPU the mode changes
+nothing, as in the JAX package, whose plain path never reaches
+`mont_mul_mxu`.
+
 Tensor contract (plane-major, see `limbs.py`):
   Fr element batch  [8, *batch]            xyzz G1 [4, 8, n], G2 [4, 2, 8, n]
   affine table G1   [2, 8, T], G2 [2, 2, 8, T]
@@ -22,11 +33,13 @@ version's exactly.
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
 
 import torch
 
 from .curve import curve_ops
-from .field import fr
+from .field import fq, fr
 
 KERNELS = {
     # name: (source in the repo, the TPU kernel it replaces)
@@ -51,12 +64,39 @@ for _g in ("g1", "g2"):
                                "ultragroth_tpu/ops/kernels.py:133"),
     })
 
-_launches: collections.Counter = collections.Counter()
+MMA_ROW = ("mont_mul_mma", "ultragroth_tpu_torch/csrc/mma_field.cuh",
+           "ultragroth_tpu/ops/mxufield.py:88")
+"""(name, source, replaced TPU kernel) of the MMA field's row: it runs
+inside every kernel of the mma build."""
+FIELD_MODES = ("cios", "mma")
+
+_launches: collections.Counter = collections.Counter()   # (name, mode)
+_mode = threading.local()
 
 
-def launch_counts() -> dict:
-    """Launches of each kernel since the last reset."""
-    return {name: _launches[name] for name in KERNELS}
+def current_field_mode() -> str:
+    return getattr(_mode, "value", "cios")
+
+
+@contextlib.contextmanager
+def field_mode(mode: str):
+    """Launch the `mode` build of every kernel on this thread inside."""
+    if mode not in FIELD_MODES:
+        raise ValueError(f"unknown field mode {mode!r}")
+    prev = current_field_mode()
+    _mode.value = mode
+    try:
+        yield
+    finally:
+        _mode.value = prev
+
+
+def launch_counts(mode: str | None = None) -> dict:
+    """Launches of each kernel since the last reset, in `mode` or in
+    both."""
+    modes = FIELD_MODES if mode is None else (mode,)
+    return {name: sum(_launches[(name, m)] for m in modes)
+            for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -87,11 +127,13 @@ def _check(x: torch.Tensor, dtype: torch.dtype, shape=None, name="tensor"):
 
 def _launch(name: str, launcher: str, *args) -> None:
     from . import _build
-    fn = _build.load()[launcher]
+    mode = current_field_mode()
+    fn = _build.load(mode)[launcher]
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    _launches[name] += 1
+        raise RuntimeError(f"{name} ({mode}): CUDA launch failed with error "
+                           f"{rc}")
+    _launches[(name, mode)] += 1
 
 
 def _elem_shape(group: str) -> tuple:
@@ -136,6 +178,27 @@ def fr_mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     _launch("fr_mont_mul", "ug_fr_mont_mul", a.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, b_n)
+    return out
+
+
+# -- fq_mont_mul (a probe of the field, no TPU kernel) ----------------------------
+
+def fq_mont_mul_plain(a, b):
+    return fq().mont_mul(a, b)
+
+
+def fq_mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fq Montgomery product a * b * R^-1, canonical, a and b [8, n]: the
+    field of the curve kernels alone, for the checks of either field mode.
+    Takes a < 2^256 with b < q, or a, b < 2q (the lazy values)."""
+    if not _on_cuda(a):
+        return fq_mont_mul_plain(a, b)
+    n = a.shape[-1]
+    _check(a, torch.int32, (8, n), "a")
+    _check(b, torch.int32, (8, n), "b")
+    out = torch.empty_like(a)
+    _launch("fq_mont_mul", "ug_fq_mont_mul", a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n)
     return out
 
 

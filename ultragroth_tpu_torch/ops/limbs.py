@@ -59,6 +59,9 @@ def words_to_planes(words: np.ndarray, device="cpu") -> torch.Tensor:
     words = np.ascontiguousarray(words, dtype=np.uint32)
     dev = torch.device(device)
     if dev.type == "cuda":
+        # a witness parsed in place from read-only bytes is copied once:
+        # torch.from_numpy takes writable arrays only
+        words = np.require(words, requirements="W")
         t = torch.from_numpy(words.view(np.int32)).to(dev)
     else:
         t = torch.from_numpy(words.astype(np.int64))

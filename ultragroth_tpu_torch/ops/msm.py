@@ -231,6 +231,27 @@ def _weighted_totals(group, buckets, n_buckets: int):
     return total
 
 
+def _bucket_orders(s64, inf, c: int, n_windows: int, pids):
+    """Signed digits of every window, sorted by bucket: (orders [W, N]
+    int32 entries pid*2 + sign, stable within a bucket; counts [W,
+    2^(c-1)]).  pids [W, N]: the table column each (window, point) pair
+    reads."""
+    n_buckets = 1 << (c - 1)
+    buckets, negs = _signed_digits(s64, c, n_windows)
+    # bucket b >= 1 -> index b-1; bucket 0 and infinity points -> sentinel
+    # n_buckets, which sorts last and is left out of the counts
+    idx = torch.where(buckets > 0, buckets - 1, n_buckets)
+    idx = torch.where(inf[None, :], n_buckets, idx)
+    enc = pids * 2 + negs.long()
+    _, perm = torch.sort(idx, dim=1, stable=True)
+    orders = enc.gather(1, perm).to(torch.int32)
+    w_base = (torch.arange(n_windows, device=idx.device)
+              * (n_buckets + 1))[:, None]
+    counts = torch.bincount((idx + w_base).reshape(-1),
+                            minlength=n_windows * (n_buckets + 1))
+    return orders, counts.reshape(n_windows, n_buckets + 1)[:, :n_buckets]
+
+
 @torch.inference_mode()
 def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
         scalars: torch.Tensor, c: int) -> torch.Tensor:
@@ -253,19 +274,9 @@ def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
     n_buckets = 1 << (c - 1)
     splits = [_split_factor(w, c) for w in range(n_windows)]
 
-    buckets, negs = _signed_digits(s64, c, n_windows)
-    # bucket b >= 1 -> index b-1; bucket 0 and infinity points -> sentinel
-    # n_buckets, which sorts last and is left out of the counts
-    idx = torch.where(buckets > 0, buckets - 1, n_buckets)
-    idx = torch.where(inf.to(dev)[None, :], n_buckets, idx)
-    enc = (torch.arange(n, device=dev)[None, :] * 2 + negs.long())
-    _, perm = torch.sort(idx, dim=1, stable=True)
-    orders = enc.gather(1, perm).to(torch.int32)
-    w_base = (torch.arange(n_windows, device=dev) * (n_buckets + 1))[:, None]
-    counts = torch.bincount((idx + w_base).reshape(-1),
-                            minlength=n_windows * (n_buckets + 1))
-    counts = counts.reshape(n_windows, n_buckets + 1)[:, :n_buckets]
-
+    orders, counts = _bucket_orders(
+        s64, inf.to(dev), c, n_windows,
+        torch.arange(n, device=dev)[None, :].expand(n_windows, n))
     acc = _accumulate(group, table.contiguous(), orders, counts, c, splits)
 
     groups: dict[int, list[int]] = {}
@@ -299,3 +310,150 @@ def msm_g1(table, inf, scalars, c: int = 16):
 def msm_g2(table, inf, scalars, c: int = 16):
     """G2 MSM: table [2, 2, 8, N]; returns xyzz [4, 2, 8]."""
     return msm("g2", table, inf, scalars, c)
+
+
+# -- fixed-base MSM (precomputed window multiples) ----------------------------
+#
+# The twin of the JAX package's `ops/msm.py:520-698`.  The prover's points
+# are per-circuit constants, so a long-lived prover can precompute
+# 2^(c*w) * P_i for every window w:
+#
+#   sum_i k_i P_i = sum_{w,i} d_{w,i} * (2^(c*w) P_i)
+#
+# and every window's digits then index the same buckets: the W windows'
+# accumulators are folded with complete adds, with no Horner combine, and
+# the window can be larger (c ~ log2(N) - 2) because only one bucket
+# reduction remains.
+
+AFFINE_CHUNK = 1 << 20
+"""Lanes per plain to-affine pass of the table build: its int64 partial
+products for 2^20 lanes stay within a few GB of device memory."""
+
+
+def fixed_n_windows(c: int) -> int:
+    nw = -(-SCALAR_BITS // c)
+    if SCALAR_BITS % c == 0:
+        nw += 1      # spare window absorbs the signed-recode carry
+    return nw
+
+
+def default_fixed_window(n: int) -> int:
+    """Balance accumulation pairs (N * ceil(254/c)) against the one
+    reduction over 2^(c-1) buckets: c ~ log2(N) - 2 (the JAX package's
+    table)."""
+    if n >= (1 << 21):
+        return 19
+    if n >= (1 << 19):
+        return 17
+    if n >= (1 << 15):
+        return 16
+    if n >= (1 << 12):
+        return 13
+    return 10
+
+
+def _to_affine_chunked(group: str, pts: torch.Tensor) -> torch.Tensor:
+    """xyzz [4, *elem, n] -> Montgomery affine [2, *elem, n], infinity as
+    (0, 0), in passes of AFFINE_CHUNK lanes (one host inversion each)."""
+    ops = curve_ops(group)
+    n = pts.shape[-1]
+    out = torch.empty((2,) + tuple(pts.shape[1:]), dtype=pts.dtype,
+                      device=pts.device)
+    for a in range(0, n, AFFINE_CHUNK):
+        x, y, _ = ops.to_affine(pts[..., a:a + AFFINE_CHUNK])
+        out[0, ..., a:a + AFFINE_CHUNK] = x
+        out[1, ..., a:a + AFFINE_CHUNK] = y
+    return out
+
+
+@torch.inference_mode()
+def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
+                    c: int | None = None):
+    """The fixed-base table of one point set (once per circuit).
+
+    table [2, *elem, N] Montgomery affine, inf [N].  N is padded to a power
+    of two >= 64 (padding points at infinity).  Returns (table [2, *elem,
+    W * Npad] whose column w * Npad + i is affine 2^(c*w) * P_i, inf [Npad],
+    c).  The doublings are `curve_add_where(P, P)` launches (its complete
+    add doubles where both sides are equal); the W * Npad points go to
+    affine in passes of AFFINE_CHUNK lanes.  Memory: W * Npad * 64 B for
+    G1, 128 B for G2."""
+    ops = curve_ops(group)
+    n = inf.shape[0]
+    if table.shape[-1] != n:
+        raise ValueError(f"msm_fixed_table: table {tuple(table.shape)}, inf "
+                         f"{tuple(inf.shape)}")
+    if c is None:
+        c = default_fixed_window(n)
+    size = max(64, 1 << (n - 1).bit_length())
+    dev = table.device
+    inf = torch.cat([inf.to(dev), torch.ones(size - n, dtype=torch.bool,
+                                             device=dev)])
+    base = torch.zeros(tuple(table.shape[:-1]) + (size,), dtype=table.dtype,
+                       device=dev)
+    base[..., :n] = table
+    base = torch.where(inf, torch.zeros_like(base), base)   # inf -> (0, 0)
+    nw = fixed_n_windows(c)
+    cur = ops.affine_to_xyzz(base[0], base[1], inf).contiguous()
+    levels = []
+    for _ in range(1, nw):
+        for _ in range(c):
+            cur = kernels.curve_add_where(group, cur, cur)
+        levels.append(cur)
+    upper = _to_affine_chunked(group, torch.cat(levels, dim=-1)) if levels \
+        else base[..., :0]
+    return torch.cat([base, upper], dim=-1).contiguous(), inf, c
+
+
+def _fold_windows(group: str, acc: torch.Tensor) -> torch.Tensor:
+    """[4, *elem, W, nb] -> [4, *elem, 1, nb]: the window axis summed with
+    complete adds (padded with infinity to a power of two)."""
+    ops = curve_ops(group)
+    w = acc.shape[-2]
+    m = 1 << max(1, (w - 1).bit_length())
+    if m > w:
+        pad = ops.inf_xyzz((m - w, acc.shape[-1]), acc.device, acc.dtype)
+        acc = torch.cat([acc, pad], dim=-2)
+    while acc.shape[-2] > 1:
+        acc = _add_all(group, acc[..., 0::2, :], acc[..., 1::2, :])
+    return acc
+
+
+@torch.inference_mode()
+def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
+              scalars: torch.Tensor, c: int) -> torch.Tensor:
+    """sum_i scalars[i] * P_i over a fixed-base table (`msm_fixed_table`)
+    as ONE xyzz point [4, *elem].  scalars [8, n] standard-form Fr, n <=
+    Npad (zero-padded), each < r (checked).
+
+    The JAX package sorts and counts per window row (`ops/msm.py:628-645`,
+    a TPU compile work-around); here it is the variable-base MSM's own
+    stable sort per row and one bincount.  Each (window, bucket) lane
+    accumulates the table columns of its window's points, so the bucket
+    loop is `_accumulate`'s, with no sub-lane splits (the top window's few
+    digits only leave its lanes short)."""
+    ops = curve_ops(group)
+    dev = table.device
+    size = inf.shape[0]
+    nw = fixed_n_windows(c)
+    n = scalars.shape[-1]
+    if (scalars.shape[0] != 8 or n > size
+            or tuple(table.shape[-1:]) != (nw * size,)):
+        raise ValueError(f"msm_fixed: table {tuple(table.shape)}, inf "
+                         f"{tuple(inf.shape)}, scalars {tuple(scalars.shape)}"
+                         f", c = {c}")
+    s64 = widen(scalars)
+    if n == 0:
+        return ops.inf_xyzz((1,), dev, table.dtype)[..., 0]
+    if not bool(_scalars_below_r(s64)):
+        raise ValueError("msm_fixed: scalars must be canonical (< r)")
+    if n < size:
+        s64 = torch.cat([s64, torch.zeros((8, size - n), dtype=s64.dtype,
+                                          device=s64.device)], dim=1)
+    # window w of point i reads table column w * size + i
+    orders, counts = _bucket_orders(
+        s64, inf.to(dev), c, nw,
+        torch.arange(nw * size, device=dev).reshape(nw, size))
+    acc = _accumulate(group, table, orders, counts, c, [1] * nw)
+    totals = _weighted_totals(group, _fold_windows(group, acc), 1 << (c - 1))
+    return totals[..., 0]

@@ -17,9 +17,18 @@ round and final deltas.
 
 The quotient runs in the mode `ops.ntt.ntt_mode` resolves: the `ntt_mode`
 argument, else ULTRAGROTH_NTT, else `fast` on the card and `base` on the
-CPU.  No fixed-base MSM tables and no mesh in this slice.
+CPU.  Two settings are read once, when a prover is built:
+  * the field mode (`ops.mxufield.field_mode()`, ULTRAGROTH_MXU_FIELD): every
+    kernel the prover launches, at set-up and in each prove, is of that
+    build (`ops.kernels.field_mode`);
+  * the fixed-base tables (`_build_fixed_tables`, ULTRAGROTH_FIXED_MSM_MB):
+    an MSM whose point set has a table runs `msm_fixed` over it.
+No mesh in this port yet.
 """
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -27,13 +36,15 @@ import torch
 from ..constants import FQ_MODULUS as Q
 from ..ops import kernels
 from ..ops import limbs as lb
+from ..ops import msm as _msm
+from ..ops import mxufield
 from ..ops import ntt as _ntt
 from ..ops.field import fr
-from ..ops.msm import default_window, msm
+from ..ops.msm import default_window
 from ..ops.ntt import Domain, quotient_scalars, scatter_coefs
 from ..oracle import curve as oc
 from ..oracle import field as ofield
-from ..trace import Tracer
+from ..trace import Tracer, profile_session
 from .groth16 import (Proof, decode_g1, decode_g2, finalize_proof,
                       random_blinding)
 from .ultragroth import derive_challenge, finalize_ultragroth
@@ -91,13 +102,58 @@ def _int_tensor(values, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(values, np.int64)).to(device)
 
 
+FIXED_BYTES_PER_POINT = {"g1": 64, "g2": 128}
+
+
+def fixed_table_plan(named_points: dict, budget_bytes: float) -> list:
+    """Which point sets get a fixed-base table: (bytes, name, group, c) of
+    each, largest first, a set taken when it still fits the budget."""
+    plan = []
+    for name, (group, n) in named_points.items():
+        npad = max(64, 1 << (n - 1).bit_length())
+        c = _msm.default_fixed_window(npad)
+        w = _msm.fixed_n_windows(c)
+        plan.append((w * npad * FIXED_BYTES_PER_POINT[group], name, group, c))
+    chosen, spend = [], 0
+    for entry in sorted(plan, reverse=True, key=lambda t: t[0]):
+        if spend + entry[0] <= budget_bytes:
+            chosen.append(entry)
+            spend += entry[0]
+    return chosen
+
+
+def _build_fixed_tables(**named_points) -> dict:
+    """Fixed-base MSM tables for the per-circuit constant point sets
+    (`ops/msm.py:msm_fixed_table`), largest first under a memory budget;
+    the twin of the JAX package's `protocol/prover.py:92-125`.
+
+    Opt-in: ULTRAGROTH_FIXED_MSM_MB is the budget in MB (0 / unset = off:
+    a table build costs seconds to minutes at 2^20 and the gain is per
+    prove, so it belongs to long-lived provers: the server, library
+    handles).  named_points: name -> (group, (table, inf)).  The bytes
+    counted are the port's own table's: W * Npad points of 64 B (G1) or
+    128 B (G2), 32-bit limbs in [2, 8] / [2, 2, 8] planes, half of the JAX
+    layout's 128 / 256 B."""
+    budget = float(os.environ.get("ULTRAGROTH_FIXED_MSM_MB", "0")) * 1e6
+    if budget <= 0:
+        return {}
+    sizes = {k: (g, pts[1].shape[0]) for k, (g, pts) in named_points.items()}
+    out = {}
+    for _, name, group, c in fixed_table_plan(sizes, budget):
+        table, inf = named_points[name][1]
+        out[name] = _msm.msm_fixed_table(group, table, inf, c)
+    return out
+
+
 class _ResidentKey:
     """What both provers keep on the device: the A, B1, B2 and H point
-    tables, the R1CS coefficients, the NTT domain and the window sizes."""
+    tables, the R1CS coefficients, the NTT domain and the window sizes,
+    and the optional fixed-base tables."""
 
     def _load_common(self, zk, device, ntt_mode):
         self.zk = zk
         self.device = dev = torch.device(device)
+        self.field_mode = mxufield.field_mode()
         self.log_n = zk.domain_size.bit_length() - 1
         if (1 << self.log_n) != zk.domain_size:
             raise ValueError("zkey domain size is not a power of two")
@@ -115,22 +171,37 @@ class _ResidentKey:
         self.beta2 = decode_g2(zk.beta2)
         self.c_vars = default_window(zk.n_vars)
         self.c_h = default_window(zk.domain_size)
-        self.domain = Domain(self.log_n, dev)
         F = fr()
         self._r2 = F.const(F.r2, (1,), dev, lb.limb_dtype(dev))
         self.last_phase_ms: dict | None = None
 
-    def _final_round(self, t: Tracer, w_std, points_c, w_c, c_c):
+    def _load_fixed(self, **named_points):
+        t0 = time.perf_counter()
+        self.fixed = _build_fixed_tables(**named_points)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        self.fixed_seconds = time.perf_counter() - t0
+
+    def _msm(self, key: str, group: str, pts, scalars, c: int):
+        """The MSM of one point set: over its fixed-base table where it has
+        one, else the variable-base Pippenger."""
+        if key in self.fixed:
+            table, inf, cf = self.fixed[key]
+            return _msm.msm_fixed(group, table, inf, scalars, cf)
+        return _msm.msm(group, *pts, scalars, c)
+
+    def _final_round(self, t: Tracer, w_std, points_c, w_c, c_c, key_c):
         """A, B1, B2 over the whole witness, C over `w_c`, the scatter, the
         quotient and H: the five MSM results as xyzz points."""
         zk = self.zk
-        pi_a = t.run("msm_a", lambda: msm("g1", *self.points_a, w_std,
-                                          self.c_vars))
-        pi_b1 = t.run("msm_b1", lambda: msm("g1", *self.points_b1, w_std,
-                                            self.c_vars))
-        pi_b2 = t.run("msm_b2", lambda: msm("g2", *self.points_b2, w_std,
-                                            self.c_vars))
-        pi_c = t.run("msm_c", lambda: msm("g1", *points_c, w_c, c_c))
+        pi_a = t.run("msm_a", lambda: self._msm("a", "g1", self.points_a,
+                                                w_std, self.c_vars))
+        pi_b1 = t.run("msm_b1", lambda: self._msm("b1", "g1", self.points_b1,
+                                                  w_std, self.c_vars))
+        pi_b2 = t.run("msm_b2", lambda: self._msm("b2", "g2", self.points_b2,
+                                                  w_std, self.c_vars))
+        pi_c = t.run("msm_c", lambda: self._msm(key_c, "g1", points_c, w_c,
+                                                c_c))
 
         def scatter():
             w_mont = kernels.fr_mont_mul(w_std, self._r2)
@@ -140,8 +211,8 @@ class _ResidentKey:
         a, b = t.run("scatter", scatter)
         h_std = t.run("quotient", lambda: quotient_scalars(
             a, b, self.domain, self.ntt_mode))
-        pi_h = t.run("msm_h", lambda: msm("g1", *self.points_h, h_std,
-                                          self.c_h))
+        pi_h = t.run("msm_h", lambda: self._msm("h", "g1", self.points_h,
+                                                h_std, self.c_h))
         return pi_a, pi_b1, pi_b2, pi_c, pi_h
 
 
@@ -150,7 +221,8 @@ class TorchGroth16Prover(_ResidentKey):
 
     device: "cuda" (the default) or "cpu" (the plain PyTorch versions of
     every kernel; what the CPU tests run).  ntt_mode: "fast", "base" or
-    None, resolved by `ops.ntt.ntt_mode`."""
+    None, resolved by `ops.ntt.ntt_mode`.  The field mode and the
+    fixed-base tables are read from the environment here, once."""
 
     def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
         self._load_common(zkey, device, ntt_mode)
@@ -158,30 +230,40 @@ class TorchGroth16Prover(_ResidentKey):
         # blinding-term points for the host-side finalization
         self.delta1 = decode_g1(zkey.delta1)
         self.delta2 = decode_g2(zkey.delta2)
+        with kernels.field_mode(self.field_mode):
+            self.domain = Domain(self.log_n, self.device)
+            self._load_fixed(a=("g1", self.points_a), b1=("g1", self.points_b1),
+                             b2=("g2", self.points_b2), c=("g1", self.points_c),
+                             h=("g1", self.points_h))
 
     @torch.inference_mode()
     def msm_outputs(self, witness_words: np.ndarray, tracer: Tracer):
         """The five MSM results as xyzz points (pi_a, pi_b1, pi_b2, pi_c,
         pi_h); phase names follow the JAX package's."""
-        w_std = tracer.run("upload", lambda: lb.words_to_planes(
-            witness_words, self.device))
-        w_c = w_std[:, self.zk.n_public + 1:].contiguous()
-        return self._final_round(tracer, w_std, self.points_c, w_c,
-                                 self.c_vars)
+        with kernels.field_mode(self.field_mode):
+            w_std = tracer.run("upload", lambda: lb.words_to_planes(
+                witness_words, self.device))
+            w_c = w_std[:, self.zk.n_public + 1:].contiguous()
+            return self._final_round(tracer, w_std, self.points_c, w_c,
+                                     self.c_vars, "c")
 
     def prove(self, witness_words: np.ndarray, r: int | None = None,
-              s: int | None = None) -> Proof:
+              s: int | None = None, abort_check=None) -> Proof:
+        """abort_check: optional callable polled at every phase mark; when
+        it returns True the prove stops with `trace.ProveAborted`."""
         zk = self.zk
         if witness_words.shape[0] != zk.n_vars:
             raise ValueError("Invalid witness length.")
         r = random_blinding() if r is None else r
         s = random_blinding() if s is None else s
-        t = Tracer(self.device)
-        pi_a, pi_b1, pi_b2, pi_c, pi_h = self.msm_outputs(witness_words, t)
-        (a, b1, c_, h), b2 = normalize_outputs((pi_a, pi_b1, pi_c, pi_h),
-                                               pi_b2)
-        proof = finalize_proof(self, a, b1, b2, c_, h, r, s)
-        t.mark("finalize")
+        t = Tracer(self.device, "groth16-prove", abort_check)
+        with profile_session("groth16-prove"):
+            pi_a, pi_b1, pi_b2, pi_c, pi_h = self.msm_outputs(witness_words,
+                                                              t)
+            (a, b1, c_, h), b2 = normalize_outputs((pi_a, pi_b1, pi_c, pi_h),
+                                                   pi_b2)
+            proof = finalize_proof(self, a, b1, b2, c_, h, r, s)
+            t.mark("finalize")
         self.last_phase_ms = t.report()
         return proof
 
@@ -191,7 +273,8 @@ class TorchUltraGrothProver(_ResidentKey):
 
     The heavy phases (six MSMs, the lookup inversion, the quotient NTTs)
     run on the device; the Keccak challenge and the O(1) blinding algebra
-    on the host.  device and ntt_mode as for `TorchGroth16Prover`."""
+    on the host.  device, ntt_mode, the field mode and the fixed-base
+    tables as for `TorchGroth16Prover`."""
 
     def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
         self._load_common(zkey, device, ntt_mode)
@@ -205,6 +288,13 @@ class TorchUltraGrothProver(_ResidentKey):
         self.final_delta2 = decode_g2(zk.final_delta2)
         self.c_round = default_window(len(zk.round_indexes))
         self.c_final = default_window(len(zk.final_indexes))
+        with kernels.field_mode(self.field_mode):
+            self.domain = Domain(self.log_n, dev)
+            self._load_fixed(a=("g1", self.points_a), b1=("g1", self.points_b1),
+                             b2=("g2", self.points_b2),
+                             rc=("g1", self.round_points_c),
+                             fc=("g1", self.final_points_c),
+                             h=("g1", self.points_h))
 
     def _lookup_scatter(self, w_std, lookup, rand: int):
         """compute_lookup on the device (parity: src/ultra_groth.cpp:61-106):
@@ -237,22 +327,28 @@ class TorchUltraGrothProver(_ResidentKey):
 
     @torch.inference_mode()
     def prove(self, witness_words: np.ndarray, lookup, r0: int | None = None,
-              r: int | None = None, s: int | None = None):
+              r: int | None = None, s: int | None = None, abort_check=None):
         """lookup: chunks, frequencies, wtns_indxs, push_indxs (a parsed
         .uwtns, `io/wtns.py:parse_wtns`).  Returns (UltraGrothProof, the
-        final witness as ints, for `public_signals`)."""
+        final witness as ints, for `public_signals`).  abort_check as for
+        `TorchGroth16Prover.prove`."""
         zk = self.zk
         if witness_words.shape[0] != zk.n_vars:
             raise ValueError("Invalid witness length.")
         r0 = random_blinding() if r0 is None else r0
         r = random_blinding() if r is None else r
         s = random_blinding() if s is None else s
-        t = Tracer(self.device)
+        t = Tracer(self.device, "ultragroth-prove", abort_check)
+        with profile_session("ultragroth-prove"), \
+                kernels.field_mode(self.field_mode):
+            return self._prove(t, witness_words, lookup, r0, r, s)
+
+    def _prove(self, t: Tracer, witness_words, lookup, r0, r, s):
         w_std = lb.words_to_planes(witness_words, self.device)
 
         def round0():
             w_r = w_std[:, self.round_indexes].contiguous()
-            pt = msm("g1", *self.round_points_c, w_r, self.c_round)
+            pt = self._msm("rc", "g1", self.round_points_c, w_r, self.c_round)
             d = _xyzz_to_affine_host(lb.planes_to_ints(pt.T), False)
             return oc.g1_add(d, oc.g1_mul(self.final_delta1, r0))
 
@@ -262,7 +358,7 @@ class TorchUltraGrothProver(_ResidentKey):
             w_std, lookup, rand))
         w_c = w_std[:, self.final_indexes].contiguous()
         pi_a, pi_b1, pi_b2, pi_c, pi_h = self._final_round(
-            t, w_std, self.final_points_c, w_c, self.c_final)
+            t, w_std, self.final_points_c, w_c, self.c_final, "fc")
         (a, b1, c_, h), b2 = normalize_outputs((pi_a, pi_b1, pi_c, pi_h),
                                                pi_b2)
         proof = finalize_ultragroth(self, a, b1, b2, c_, h, d, r0, r, s)

@@ -1,0 +1,64 @@
+"""Process-level configuration shared by the port's entry points (api, cli,
+server): the twin of the JAX package's `runtime.py`.
+
+- ULTRAGROTH_PLATFORM=cpu|cuda picks the device the entry points prove on
+  (`default_device()`, default cuda).  With cuda and no card it raises:
+  no entry point carries on on the CPU unless the caller asked for it.
+- ULTRAGROTH_COMPILE_CACHE=<dir> is where the CUDA kernel libraries are
+  built (`compile_cache_dir()`, default `ultragroth_tpu_torch/_build/`);
+  the JAX package's variable of the same name holds its XLA cache.
+- ULTRAGROTH_COORDINATOR starts the JAX package's multi-host runtime.  The
+  port has no multi-device layer yet, so `configure()` raises when it is
+  set rather than prove on one card as if it were not.
+
+The JAX package's `ensure_map_count` (a raise of vm.max_map_count for
+XLA:CPU's JIT) has no twin: the port compiles no XLA program, and its code
+writes nothing outside its checkout and build directory.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import torch
+
+PLATFORMS = ("cpu", "cuda")
+DEFAULT_CACHE = Path(__file__).resolve().parent / "_build"
+
+_CONFIGURED = False
+
+
+def platform() -> str:
+    plat = os.environ.get("ULTRAGROTH_PLATFORM", "") or "cuda"
+    if plat not in PLATFORMS:
+        raise ValueError(f"ULTRAGROTH_PLATFORM={plat!r}: expected one of "
+                         f"{PLATFORMS}")
+    return plat
+
+
+def default_device() -> torch.device:
+    """The device the entry points use (ULTRAGROTH_PLATFORM)."""
+    plat = platform()
+    if plat == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: set ULTRAGROTH_PLATFORM=cpu to "
+                           "prove on the CPU")
+    return torch.device(plat)
+
+
+def compile_cache_dir() -> Path:
+    cache = os.environ.get("ULTRAGROTH_COMPILE_CACHE", "")
+    return Path(cache) if cache else DEFAULT_CACHE
+
+
+def configure() -> None:
+    """Once per process, before the first prover: refuse what the port
+    cannot do yet."""
+    global _CONFIGURED
+    if _CONFIGURED:
+        return
+    if os.environ.get("ULTRAGROTH_COORDINATOR"):
+        raise RuntimeError(
+            "ULTRAGROTH_COORDINATOR is set, but the PyTorch port has no "
+            "multi-device layer yet: unset it to prove on one device")
+    platform()
+    _CONFIGURED = True
