@@ -26,6 +26,14 @@ equal to the default mode's for pinned randomness and verified by
 with a verifying proof and a /cancel mid-prove with `aborted`; and the CLI
 sets up, proves and verifies a 2^10 circuit in subprocesses.
 
+The Pippenger bucket loop is one `curve_bucket_drain` launch per MSM: phase
+1 prints each drain's registers, spills and resident blocks per SM, phase
+2 holds it equal to its plain version over a multi-step drain with the
+exceptional lanes and times it per step (random entries: the
+`curve_madd_fast` row; every step exceptional: the `curve_madd_signed`
+row, the `exceptional` object of the drain's entry in the kernels line),
+and phase 7 checks one drain launch per MSM on every path.
+
 One line per phase (name, seconds, pass/fail) is printed as each phase
 ends; before the last line come one JSON object with every kernel's
 launches (their sum over the driven paths in `launches`, each path's own
@@ -85,6 +93,15 @@ MMA_IMAD = 128
 MMA_U8_OPS = 2 * 3072
 INT8_OPS_PER_S = 1.979e15
 FIXED_MSM_MB = "8000"      # all five 2^20 tables: 4 x 1.01 GB G1 + 2.01 GB G2
+DRAIN_CHECK_STEPS = 8      # the bucket drain held against its plain version
+DRAIN_TIME_STEPS = 256     # the bucket drain timed
+# the TPU kernel of the drain's exceptional steps (its KERNELS entry names
+# curve_madd_fast)
+DRAIN_EXCEPTIONAL_REPLACES = "ultragroth_tpu/ops/kernels.py:77"
+# the MSMs of each driven path: (G1, G2) bucket drain launches
+PATH_MSMS = {"groth16_2^20": (4, 1), "groth16_2^20_base": (4, 1),
+             "groth16_2^20_fixed": (4, 1), "ultragroth_2^20": (5, 1),
+             "ultragroth_2^20_steady": (5, 1), "ultragroth_2^20_api_mma": (5, 1)}
 
 
 class CheckFailed(RuntimeError):
@@ -314,17 +331,17 @@ def _rand_field(shape, p, gen, dev):
     return lb.narrow(x, torch.int32).contiguous()
 
 
-def kernel_checks(dev, mode):
+def kernel_checks(dev, mode, drain_cache):
     """Every kernel of the `mode` build against its plain version at the
     main path's shapes, timed; the plain versions timed in the cios pass
     only (the same function either way)."""
     from ultragroth_tpu_torch.ops import kernels as K
     with K.field_mode(mode):
         return _kernel_checks(dev, host_time_ms if mode == "cios"
-                              else (lambda fn: None))
+                              else (lambda fn: None), drain_cache)
 
 
-def _kernel_checks(dev, plain):
+def _kernel_checks(dev, plain, drain_cache):
     from ultragroth_tpu_torch.constants import FQ_MODULUS as Q, FR_MODULUS as R
     from ultragroth_tpu_torch.ops import kernels as K
     from ultragroth_tpu_torch.ops import limbs as lb
@@ -398,57 +415,9 @@ def _kernel_checks(dev, plain):
         e = () if group == "g1" else (2,)
         fq_mul = MUL_IMAD * (1 if group == "g1" else 3)   # Fq2: Karatsuba
         fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
-        table = _rand_field((2, *e, 8, table_n), Q, gen, dev)
+        drain_checks(group, gen, dev, record, err, plain, drain_cache)
         acc = _rand_field((4, *e, 8, lanes), Q, gen, dev)
-        ent = torch.randint(0, 2 * table_n, (lanes,), generator=gen,
-                            device=dev, dtype=torch.int64)
-        cnt = (torch.rand(lanes, generator=gen, device=dev) < 0.9).to(torch.int32)
-        # edge lanes: acc at infinity; acc == Q; acc == -Q (acc = Q, sign 1)
         acc[..., :16] = ops.inf_xyzz((16,), dev, torch.int32)
-        pid = ent[16:48] >> 1
-        q_xyzz = ops.affine_to_xyzz(table[0][..., pid], table[1][..., pid],
-                                    torch.zeros(32, dtype=torch.bool, device=dev))
-        acc[..., 16:48] = q_xyzz
-        ent[16:32] = pid[:16] * 2
-        ent[32:48] = pid[16:] * 2 + 1
-        cnt[:48] = 1
-        orders = ent.to(torch.int32).contiguous()
-        gidx = torch.arange(lanes, device=dev, dtype=torch.int32)
-        stride = torch.ones(lanes, device=dev, dtype=torch.int32)
-        acc = acc.contiguous()
-        valid = int(cnt.sum())
-        pts_bytes = 2 * kq * 32 * valid            # gathered points
-        acc_bytes = 4 * kq * 32 * lanes
-        idx_bytes = 4 * 4 * lanes
-
-        k, kf = K.curve_madd_fast(group, acc, table, orders, gidx, stride, cnt, 0)
-        p, pf = K.curve_madd_fast_plain(group, acc, table, orders, gidx,
-                                        stride, cnt, 0)
-        check(torch.equal(k, p) and torch.equal(kf, pf) and bool(pf[16:48].all()),
-              f"{group}_madd_fast disagrees with its plain version")
-        out = torch.empty_like(acc)
-        record(f"{group}_madd_fast", err(k, p),
-               cuda_time_ms(lambda: K.curve_madd_fast(
-                   group, acc, table, orders, gidx, stride, cnt, 0, out=out), 50),
-               plain(lambda: K.curve_madd_fast_plain(
-                   group, acc, table, orders, gidx, stride, cnt, 0)),
-               pts_bytes + 2 * acc_bytes + idx_bytes + lanes,
-               valid * (8 * fq_mul + 2 * fq_sqr))
-
-        k = K.curve_madd_signed(group, acc, table, orders, gidx, stride, cnt, 0)
-        p = K.curve_madd_signed_plain(group, acc, table, orders, gidx, stride,
-                                      cnt, 0)
-        check(torch.equal(k, p), f"{group}_madd_signed disagrees with its "
-              "plain version")
-        check(bool(ops.is_inf(p[..., 32:48]).all()), f"{group}: Q + (-Q) != inf")
-        record(f"{group}_madd_signed", err(k, p),
-               cuda_time_ms(lambda: K.curve_madd_signed(
-                   group, acc, table, orders, gidx, stride, cnt, 0, out=out), 50),
-               plain(lambda: K.curve_madd_signed_plain(
-                   group, acc, table, orders, gidx, stride, cnt, 0)),
-               pts_bytes + 2 * acc_bytes + idx_bytes,
-               valid * (8 * fq_mul + 2 * fq_sqr))
-
         a = acc[..., :fold_n].contiguous()
         b = acc[..., fold_n:2 * fold_n].contiguous()
         b[..., 48:64] = a[..., 48:64]                               # P == Q
@@ -482,6 +451,104 @@ def _kernel_checks(dev, plain):
                                                                horner_c)),
                2 * 4 * kq * 32 * horner_n, n_dbl * (6 * fq_mul + 3 * fq_sqr))
     return results
+
+
+def drain_checks(group, gen, dev, record, err, plain, cache):
+    """curve_bucket_drain against its plain version at the MSM's 81,920
+    lanes (c = 13 at 2^20) over a 2^20-point point-major table: 8 steps
+    from given accumulators and steps [2, 7) from infinity, with lanes at
+    infinity, P + P repeated, P + (-P) then on, +Q / -Q alternating (every
+    step exceptional) and lanes past their counts.  The inputs and the
+    plain results are made once (`cache`) for both builds.  Timed per step
+    over 256-step drains: random entries (the `curve_madd_fast` row) and
+    +Q / -Q alternating from infinity (the `curve_madd_signed` row)."""
+    from ultragroth_tpu_torch.constants import FQ_MODULUS as Q
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.ops.curve import (curve_ops, table_from_planes,
+                                                table_planes)
+    ops = curve_ops(group)
+    kq = 1 if group == "g1" else 2
+    e = () if group == "g1" else (2,)
+    fq_mul = MUL_IMAD * (1 if group == "g1" else 3)
+    fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
+    lanes, table_n = 20 * 4096, 1 << LOG_N
+    i32 = dict(device=dev, dtype=torch.int32)
+
+    def lane_major(ent):
+        """[steps, lanes] entries -> the MSM's layout: lane i's run at
+        i * steps (gidx), stride 1."""
+        steps = ent.shape[0]
+        return (ent.T.reshape(-1).to(torch.int32).contiguous(),
+                torch.arange(lanes, **i32) * steps, torch.ones(lanes, **i32))
+
+    if group not in cache:
+        steps = DRAIN_CHECK_STEPS
+        table = table_from_planes(_rand_field((2, *e, 8, table_n), Q, gen, dev))
+        ent = torch.randint(0, 2 * table_n, (steps, lanes), generator=gen,
+                            device=dev)
+        cnt = torch.randint(0, steps + 1, (lanes,), generator=gen, device=dev)
+        acc = _rand_field((4, *e, 8, lanes), Q, gen, dev)
+        pid = ent[0, :64] >> 1
+        q = table_planes(table[pid])
+        q = ops.affine_to_xyzz(q[0], q[1], torch.zeros(64, dtype=torch.bool,
+                                                       device=dev))
+        acc[..., :16] = ops.inf_xyzz((16,), dev, torch.int32)     # P == inf
+        acc[..., 16:48] = q[..., 16:48]                           # P == Q
+        ent[:, 16:32] = pid[16:32] * 2                            # Q, 2Q, 3Q..
+        ent[0, 32:48] = pid[32:48] * 2 + 1                        # Q + (-Q)
+        acc[..., 48:64] = ops.inf_xyzz((16,), dev, torch.int32)
+        ent[:, 48:64] = (pid[48:64] * 2)[None, :] + (
+            torch.arange(steps, device=dev) % 2)[:, None]        # +Q, -Q, ..
+        cnt[:64] = steps
+        cnt[64:80] = 0
+        orders, gidx, stride = lane_major(ent)
+        cnt = cnt.to(torch.int32).contiguous()
+        acc = acc.contiguous()
+        args = (table, orders, gidx, stride, cnt)
+        want = K.curve_bucket_drain_plain(group, *args, 0, steps, acc)
+        want_inf = K.curve_bucket_drain_plain(group, *args, 2, 7)
+        check(bool(ops.is_inf(want[..., 48:64]).all()),
+              f"{group}: +Q / -Q alternating 8 times is not infinity")
+        t_steps = DRAIN_TIME_STEPS
+        rand = lane_major(torch.randint(0, 2 * table_n, (t_steps, lanes),
+                                        generator=gen, device=dev))
+        alt_pid = torch.randint(0, table_n, (lanes,), generator=gen,
+                                device=dev)
+        alt = lane_major(alt_pid[None, :] * 2 + (
+            torch.arange(t_steps, device=dev) % 2)[:, None])
+        full = torch.full((lanes,), t_steps, **i32)
+        fast_args = (table, *rand, full)
+        exc_args = (table, *alt, full)
+        cache[group] = dict(
+            args=args, acc=acc, want=want, want_inf=want_inf,
+            fast=fast_args, exc=exc_args,
+            plain_fast=plain(lambda: K.curve_bucket_drain_plain(
+                group, *fast_args, 0, 2, acc)),
+            plain_exc=plain(lambda: K.curve_bucket_drain_plain(
+                group, *exc_args, 0, 2)))
+    c = cache[group]
+    k = K.curve_bucket_drain(group, *c["args"], 0, DRAIN_CHECK_STEPS,
+                             acc=c["acc"])
+    k_inf = K.curve_bucket_drain(group, *c["args"], 2, 7)
+    check(torch.equal(k, c["want"]) and torch.equal(k_inf, c["want_inf"]),
+          f"{group}_bucket_drain disagrees with its plain version")
+    max_abs = max(err(k, c["want"]), err(k_inf, c["want_inf"]))
+    t_steps = DRAIN_TIME_STEPS
+    ms_fast = cuda_time_ms(lambda: K.curve_bucket_drain(
+        group, *c["fast"], acc=c["acc"]), 5) / t_steps
+    ms_exc = cuda_time_ms(lambda: K.curve_bucket_drain(
+        group, *c["exc"]), 5) / t_steps
+    per_step = lanes * (4 + 2 * kq * 32)           # an entry and a point
+    acc_bytes = 4 * kq * 32 * lanes
+    madd = lanes * (8 * fq_mul + 2 * fq_sqr)      # 10 Fq products a lane
+    # an exceptional step runs the fast madd and then the complete one
+    # (+Q / -Q from infinity takes no doubling): 20 products a lane
+    for name, ms, plain_ms, acc_io, imads in (
+            (f"{group}_bucket_drain", ms_fast, c["plain_fast"], 2, madd),
+            (f"{group}_bucket_drain:exceptional", ms_exc, c["plain_exc"], 1,
+             2 * madd)):
+        record(name, max_abs, ms, None if plain_ms is None else plain_ms / 2,
+               per_step + (acc_io * acc_bytes + 12 * lanes) / t_steps, imads)
 
 
 def madd_valid_checks(group, gen, dev, record, err, plain):
@@ -1004,11 +1071,18 @@ def main() -> int:
             for line in so.with_suffix(".log").read_text().splitlines():
                 if "registers" in line or "spill" in line or "entry" in line:
                     print(f"  [{mode}] " + line.strip(), flush=True)
+        for mode in _build.MODES:
+            for g, (regs, local, blocks) in _build.drain_info(mode).items():
+                print(f"  [{mode}] {g}_bucket_drain: {regs} registers, "
+                      f"{local} B local memory (stack and spills) a thread, "
+                      f"{blocks} blocks of 128 threads per SM", flush=True)
 
     with phase("2_kernels_vs_plain"):
-        metrics = kernel_checks(dev, "cios")
+        drain_cache = {}
+        metrics = kernel_checks(dev, "cios", drain_cache)
         torch.cuda.empty_cache()
-        metrics_mma = kernel_checks(dev, "mma")
+        metrics_mma = kernel_checks(dev, "mma", drain_cache)
+        del drain_cache
         check(all(m["max_abs_err"] == 0 for m in metrics_mma.values()),
               "an MMA-built kernel differs from its plain version")
         print(f"  all {len(metrics_mma)} kernel instances of the mma build "
@@ -1148,6 +1222,11 @@ def main() -> int:
         check(not any(paths["groth16_2^20_fixed"][k] for k in
                       ("g1_horner_scale", "g2_horner_scale")),
               "the fixed-base MSMs ran a Horner combine")
+        for name, msms in PATH_MSMS.items():
+            drains = (paths[name]["g1_bucket_drain"],
+                      paths[name]["g2_bucket_drain"])
+            check(drains == msms, f"{name}: (G1, G2) bucket drain launches "
+                  f"{drains}, not one per MSM {msms}")
         api_mma = mma_paths["ultragroth_2^20_api_mma"]
         missing = [k for k in prove_kernels if api_mma[k] == 0]
         check(not missing, f"MMA builds never launched on the mma path: "
@@ -1159,11 +1238,17 @@ def main() -> int:
         check(not missing, f"kernels never launched: {missing}")
         rows = []
         for name, (source, replaces) in K.KERNELS.items():
-            rows.append({"name": name, "route": "cuda", "source": source,
-                         "replaces": replaces, "launches": total[name],
-                         "launches_by_path": {p: c[name]
-                                              for p, c in paths.items()},
-                         **metrics[name],
+            row = {"name": name, "route": "cuda", "source": source,
+                   "replaces": replaces, "launches": total[name],
+                   "launches_by_path": {p: c[name] for p, c in paths.items()}}
+            if name.endswith("_bucket_drain"):
+                # the same launches' exceptional steps: the complete add
+                # of curve_madd_signed, timed apart
+                exc = f"{name}:exceptional"
+                row["exceptional"] = {
+                    "replaces": DRAIN_EXCEPTIONAL_REPLACES, **metrics[exc],
+                    "mma_ms": metrics_mma[exc]["ms"]}
+            rows.append({**row, **metrics[name],
                          "mma_ms": metrics_mma[name]["ms"]})
         mma_launches = {p: sum(c.values()) for p, c in mma_paths.items()}
         name, source, replaces = K.MMA_ROW

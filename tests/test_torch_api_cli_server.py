@@ -6,9 +6,13 @@ proofs of the `torch` backend on the CPU (`device="cpu"`,
 ULTRAGROTH_PLATFORM=cpu) byte-equal to `ultragroth_tpu.api`'s oracle
 backend for pinned randomness; the CLI round trips; the server's status
 machine, UltraGroth autodetect, preemption by a second request and
-/cancel during a prove; the runtime's refusals.
+/cancel during a prove; the runtime's refusals and its build directory.
 """
 import json
+import os
+import pathlib
+import subprocess
+import sys
 import threading
 import time
 import urllib.error
@@ -306,6 +310,32 @@ def test_runtime_platform_and_refusals(monkeypatch, tmp_path):
         runtime.configure()
     monkeypatch.delenv("ULTRAGROTH_COORDINATOR")
     runtime.configure()
+
+
+def test_compile_cache_off_builds_in_a_removed_temporary_directory(tmp_path):
+    """ULTRAGROTH_COMPILE_CACHE=off means no persistent cache, as in the JAX
+    package (ultragroth_tpu/runtime.py): the kernel libraries go to a
+    temporary directory of the process, removed when it exits, and never
+    to a directory named `off` under the working directory."""
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    tmp = tmp_path / "tmp"
+    tmp.mkdir()
+    code = ("from ultragroth_tpu_torch import runtime\n"
+            "from ultragroth_tpu_torch.ops import _build\n"
+            "d = runtime.compile_cache_dir()\n"
+            "assert d == runtime.compile_cache_dir() and d.is_dir()\n"
+            "assert _build.library_path('g1_kernels.cu').parent == d\n"
+            "(d / 'lib.so').write_bytes(b'')\n"
+            "print(d)\n")
+    env = dict(os.environ, ULTRAGROTH_COMPILE_CACHE="off", TMPDIR=str(tmp),
+               PYTHONPATH=str(repo))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    built = pathlib.Path(out.stdout.strip())
+    assert built.parent == tmp and built.name.startswith("ultragroth_")
+    assert not built.exists()                  # removed at exit
+    assert not (tmp_path / "off").exists()
 
 
 def test_tracer_trace_profile_and_abort(monkeypatch, tmp_path, capsys):

@@ -19,7 +19,7 @@ from ultragroth_tpu_torch.io.zkey import (parse_groth16_zkey,
                                           parse_ultragroth_zkey)
 from ultragroth_tpu_torch.ops import kernels as K
 from ultragroth_tpu_torch.ops import limbs as lb
-from ultragroth_tpu_torch.ops.curve import curve_ops
+from ultragroth_tpu_torch.ops.curve import curve_ops, table_from_planes
 from ultragroth_tpu_torch.ops.field import fq
 from ultragroth_tpu_torch.ops.ntt import Domain
 from ultragroth_tpu_torch.oracle import curve as oc
@@ -63,28 +63,37 @@ def _points(group, n):
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_curve_kernels_match_plain_on_card(dev, group):
+    """The bucket drain in both builds (6 steps over a 512-point table with
+    P + P, P + (-P), +Q / -Q alternating and lanes past their counts, from
+    given accumulators and from infinity), add_where and horner."""
     ops = curve_ops(group)
-    table = _points(group, 2 * N)
+    planes = _points(group, 2 * N)
+    table = table_from_planes(planes)
     no_inf = torch.zeros(N, dtype=torch.bool)
-    acc = ops.dbl(ops.affine_to_xyzz(table[0][..., N:], table[1][..., N:], no_inf))
-    q = ops.affine_to_xyzz(table[0][..., :N], table[1][..., :N], no_inf)
+    acc = ops.dbl(ops.affine_to_xyzz(planes[0][..., N:], planes[1][..., N:],
+                                     no_inf))
+    q = ops.affine_to_xyzz(planes[0][..., :N], planes[1][..., :N], no_inf)
     acc[..., 0] = ops.inf_xyzz((1,))[..., 0]
     acc[..., 1:3] = q[..., 1:3]
-    orders = torch.arange(N) * 2 + (torch.arange(N) % 3 == 0).long()
-    orders[1], orders[2] = 2, 5                       # P == Q, P == -Q
-    gidx, stride = torch.arange(N), torch.ones(N, dtype=torch.long)
-    cnt = (torch.arange(N) % 7 != 4).long()
-    args = (table, orders, gidx, stride, cnt)
+    steps = 6
+    g = torch.Generator().manual_seed(65)
+    orders = torch.randint(0, 4 * N, (steps, N), generator=g)
+    orders[0] = torch.arange(N) * 2 + (torch.arange(N) % 3 == 0).long()
+    orders[0, 1], orders[0, 2] = 2, 5                 # P == Q, P == -Q
+    orders[:, 7] = 14 + torch.arange(steps) % 2       # +Q, -Q, +Q, ...
+    cnt = torch.randint(0, steps + 1, (N,), generator=g)
+    cnt[[1, 2, 7]] = steps
+    args = (table, orders.reshape(-1), torch.arange(N), torch.full((N,), N),
+            cnt)
     cargs = [_cu(x, dev) for x in args]
-    sticky = torch.zeros(1, dtype=torch.int32, device=dev)
-
-    k, kf = K.curve_madd_fast(group, _cu(acc, dev), *cargs, 0, sticky=sticky)
-    p, pf = K.curve_madd_fast_plain(group, acc, *args, 0)
-    assert torch.equal(lb.widen(k.cpu()), p) and torch.equal(kf.cpu(), pf)
-    assert int(sticky.item()) == 1
-    k = K.curve_madd_signed(group, _cu(acc, dev), *cargs, 0)
-    assert torch.equal(lb.widen(k.cpu()),
-                       K.curve_madd_signed_plain(group, acc, *args, 0))
+    for mode in K.FIELD_MODES:
+        with K.field_mode(mode):
+            k = K.curve_bucket_drain(group, *cargs, 0, steps, acc=_cu(acc, dev))
+            assert torch.equal(lb.widen(k.cpu()), K.curve_bucket_drain_plain(
+                group, *args, 0, steps, acc=acc)), mode
+            k = K.curve_bucket_drain(group, *cargs, 1)
+            assert torch.equal(lb.widen(k.cpu()), K.curve_bucket_drain_plain(
+                group, *args, 1)), mode
     b = torch.roll(acc, 1, -1)
     b[..., 5] = acc[..., 5]
     b[..., 6] = ops.neg(acc[..., 6:7])[..., 0]
@@ -203,7 +212,7 @@ def test_small_prove_in_mma_mode_matches_cpu(dev, monkeypatch):
     K.reset_launch_counts()
     on_card = prover.prove(w, r=11, s=22)
     assert sum(K.launch_counts("cios").values()) == 0
-    assert K.launch_counts("mma")["g2_madd_fast"] > 0
+    assert K.launch_counts("mma")["g2_bucket_drain"] == 1
     on_cpu = TorchGroth16Prover(zk, device="cpu").prove(w, r=11, s=22)
     assert on_card.to_json() == on_cpu.to_json()
 

@@ -21,7 +21,7 @@ from ultragroth_tpu.ops.fq2 import Fq2Ops as JFq2Ops
 from ultragroth_tpu_torch import convert
 from ultragroth_tpu_torch.constants import FQ_MODULUS as Q, FR_MODULUS as R
 from ultragroth_tpu_torch.ops import limbs as lb
-from ultragroth_tpu_torch.ops.curve import curve_ops
+from ultragroth_tpu_torch.ops.curve import curve_ops, table_from_planes
 from ultragroth_tpu_torch.ops.field import fq, fr
 from ultragroth_tpu_torch.ops.fq2 import Fq2Ops
 from ultragroth_tpu_torch.oracle import curve as oc
@@ -57,6 +57,13 @@ def g2_table(points):
         for c in range(2) for k in range(2)]
     tab = torch.stack([torch.stack(comps[:2]), torch.stack(comps[2:])])
     return tab, torch.tensor([p is None for p in points])
+
+
+def point_table(group, points):
+    """Oracle affine list -> (the MSMs' point-major table [N, 2, *elem],
+    inf)."""
+    tab, inf = (g1_table if group == "g1" else g2_table)(points)
+    return table_from_planes(tab), inf
 
 
 def affine_points(group, pts):
@@ -143,6 +150,8 @@ def test_port_imports_without_jax():
         "from ultragroth_tpu_torch.ops import mxufield\n"
         "from ultragroth_tpu_torch.ops.ntt import ntt_fast, ntt_mode\n"
         "from ultragroth_tpu_torch.ops.msm import msm_fixed, msm_fixed_table\n"
+        "from ultragroth_tpu_torch.ops.kernels import (\n"
+        "    curve_bucket_drain, curve_bucket_drain_plain)\n"
         "from ultragroth_tpu_torch import convert, keccak, trace\n"
         "from ultragroth_tpu_torch import api, cli, log, runtime, server\n"
         "from ultragroth_tpu_torch.testkit import setup, circuits, dsetup\n"

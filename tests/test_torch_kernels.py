@@ -1,12 +1,15 @@
 """PyTorch port: each of the kernels' plain versions against the JAX
 package's kernel entries (`ultragroth_tpu.ops.kernels`, run on the CPU as
 its own tests run them), G1 and G2, with infinity on either side, P == Q
-and P == -Q; and the kernels' own lane bodies (csrc/*.cuh, built for the
-host with g++) against the plain versions.  (`fr_cg_ntt`'s network is
-held against the JAX package in tests/test_torch_ntt_fast.py.)
+and P == -Q; the plain bucket drain against the JAX package's drain (its
+step kernels with the sticky redo) and the oracle; and the kernels' own
+lane bodies (csrc/*.cuh, built for the host with g++) against the plain
+versions.  (`fr_cg_ntt`'s network is held against the JAX package in
+tests/test_torch_ntt_fast.py.)
 
 Curve outputs are compared after to_affine (the xyzz representative of a
-point is not unique); flags exactly.  Widths stay at 16 lanes.
+point is not unique) against the JAX package and the oracle, exactly
+against the lane bodies; flags exactly.  Widths stay at 16-24 lanes.
 """
 import ctypes
 import shutil
@@ -22,19 +25,22 @@ from ultragroth_tpu_torch import convert
 from ultragroth_tpu_torch.constants import FR_MODULUS as R
 from ultragroth_tpu_torch.ops import kernels as K
 from ultragroth_tpu_torch.ops import limbs as lb
-from ultragroth_tpu_torch.ops.curve import curve_ops
+from ultragroth_tpu_torch.ops.curve import (curve_ops, table_from_planes,
+                                            table_planes)
+from ultragroth_tpu_torch.oracle import curve as oc
 
 from tests.test_torch_field import (REPO, affine_points, elem_to_jax,
-                                    g1_table, g2_table, random_points, sample,
-                                    xyzz_from_jax, xyzz_to_jax)
+                                    g1_table, g2_table, point_table,
+                                    random_points, sample, xyzz_from_jax,
+                                    xyzz_to_jax)
 
 N = 16
 
 
 def _case(group):
-    """acc (xyzz), the table of gathered points, signs and validity, with
-    the edge cases on fixed lanes: acc at infinity (lane 0), acc == Q
-    (lane 1), acc == -Q (lane 2), Q past the count (lanes 3, 8)."""
+    """acc (xyzz), the point-major table of gathered points, signs and
+    validity, with the edge cases on fixed lanes: acc at infinity (lane 0),
+    acc == Q (lane 1), acc == -Q (lane 2), Q past the count (lanes 3, 8)."""
     ops = curve_ops(group)
     pts = random_points(group, 2 * N, seed=11 if group == "g1" else 12)
     table, _ = (g1_table if group == "g1" else g2_table)(pts[:N])
@@ -48,7 +54,7 @@ def _case(group):
     neg = torch.tensor([i % 3 == 0 for i in range(N)])
     neg[1], neg[2] = False, True       # lane 2 adds -Q to acc = Q
     valid = torch.tensor([i not in (3, 8) for i in range(N)])
-    return acc, table, neg, valid
+    return acc, table_from_planes(table), neg, valid
 
 
 def _fixed_base_case(group):
@@ -104,7 +110,8 @@ def test_madd_kernels_match_jax(group):
     acc, table, neg, valid = _case(group)
     orders, gidx, stride, cnt = _port_gather_args(neg, valid)
     jacc = xyzz_to_jax(group, acc)
-    jqx, jqy = elem_to_jax(group, table[0]), elem_to_jax(group, table[1])
+    planes = table_planes(table)
+    jqx, jqy = elem_to_jax(group, planes[0]), elem_to_jax(group, planes[1])
     jneg, jvalid = jnp.asarray(neg.numpy()), jnp.asarray(valid.numpy())
 
     out, flag = K.curve_madd_fast_plain(group, acc, table, orders, gidx,
@@ -123,6 +130,130 @@ def test_madd_kernels_match_jax(group):
     got = affine_points(group, out)
     assert got == affine_points(group, xyzz_from_jax(group, jout))
     assert got[2] is None                 # Q + (-Q)
+
+
+DRAIN_POINTS = 160
+
+
+def _drain_case(group, special=True, alt=2, repeat=2, long=128, most=2):
+    """A drain over 24 lanes of a 160-point table, the order entries
+    column-major (lane i's step t at t*24 + i: gidx i, stride 24).  Lane 0
+    is past its count from the start; with `special`, lane 1 adds one
+    point `repeat` times (P + P), lane 2 alternates +Q and -Q `alt` times
+    (every step exceptional), lane 3 adds -P then P, lane 4 adds `long`
+    distinct points; the other lanes 0..`most` random entries.  Returns
+    (table, orders, gidx, stride, cnt, points, entries by lane)."""
+    pts = random_points(group, DRAIN_POINTS, seed=15 if group == "g1" else 16)
+    rng = np.random.default_rng(17 if special else 18)
+    lanes = [[]]
+    for i in range(1, 24):
+        p = int(rng.integers(DRAIN_POINTS))
+        if special and i == 1:
+            lanes.append([2 * p] * repeat)
+        elif special and i == 2:
+            lanes.append([2 * p + (t & 1) for t in range(alt)])
+        elif special and i == 3:
+            lanes.append([2 * p + 1, 2 * p])
+        elif special and i == 4:
+            lanes.append([2 * k for k in range(long)])
+        else:
+            k = int(rng.integers(0, most + 1))
+            lanes.append(rng.integers(0, 2 * DRAIN_POINTS, size=k).tolist())
+    depth = max(len(e) for e in lanes)
+    orders = torch.zeros((depth, 24), dtype=torch.long)
+    for i, ents in enumerate(lanes):
+        orders[:len(ents), i] = torch.tensor(ents, dtype=torch.long)
+    table, _ = point_table(group, pts)
+    cnt = torch.tensor([len(e) for e in lanes])
+    return (table, orders.reshape(-1), torch.arange(24),
+            torch.full((24,), 24), cnt, pts, lanes)
+
+
+def _oracle_drain(group, pts, lanes, t_from=0, t_to=None):
+    """Each lane's sum of its signed points over steps [t_from, t_to)."""
+    add = oc.g1_add if group == "g1" else oc.g2_add
+    neg = oc.g1_neg if group == "g1" else oc.g2_neg
+    out = []
+    for ents in lanes:
+        total = None
+        for e in ents[t_from:t_to]:
+            total = add(total, neg(pts[e >> 1]) if e & 1 else pts[e >> 1])
+        out.append(total)
+    return out
+
+
+def _jax_step(group, table, orders, gidx, stride, cnt, t):
+    """Step t's operands of the JAX step kernels: (qx, qy, neg, valid)."""
+    valid = t < cnt
+    ent = orders[torch.where(valid, gidx + t * stride, 0)]
+    q = table_planes(table[ent >> 1])
+    return (elem_to_jax(group, q[0]), elem_to_jax(group, q[1]),
+            jnp.asarray(((ent & 1) != 0).numpy()), jnp.asarray(valid.numpy()))
+
+
+def _jax_drain(group, acc, steps):
+    """The JAX package's drain (ultragroth_tpu/ops/msm.py:250-276): fast
+    steps with a sticky flag; when any lane flagged, every step redone from
+    `acc` with the complete add."""
+    fast, full = jk.curve_madd_fast(group), jk.curve_madd_signed(group)
+    a, flagged = acc, False
+    for qx, qy, neg, valid in steps:
+        a, flag = fast(a, qx, qy, neg, valid)
+        flagged |= bool(np.asarray(flag).any())
+    if flagged:
+        a = acc
+        for qx, qy, neg, valid in steps:
+            a = full(a, qx, qy, ~valid, neg)
+    return a
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bucket_drain_plain_matches_jax_drain(group):
+    """The plain drain against the JAX package's drain run on its step
+    kernels as test_madd_kernels_match_jax runs them: the seed (one
+    complete step from infinity), then drains of fast steps with the sticky
+    redo.  G1 with the exceptional lanes and the 64x lane (a drain over
+    step 1, then one over the rest, as the JAX loop's phases split it); G2
+    over 3 steps without exceptional lanes past the seed (an eager JAX G2
+    complete add takes seconds here; the oracle test covers the rest)."""
+    case = (_drain_case(group) if group == "g1"
+            else _drain_case(group, special=False, most=3))
+    table, orders, gidx, stride, cnt, _, _ = case
+    lanes = (table, orders, gidx, stride, cnt)
+    n, depth = gidx.shape[0], int(cnt.max())
+    ops = curve_ops(group)
+    step = [_jax_step(group, *lanes, t) for t in range(depth)]
+    qx, qy, neg, valid = step[0]
+    a = jk.curve_madd_signed(group)(xyzz_to_jax(group, ops.inf_xyzz((n,))),
+                                    qx, qy, ~valid, neg)
+    for t0, t1 in ((1, 2), (2, depth)) if group == "g1" else ((1, depth),):
+        a = _jax_drain(group, a, step[t0:t1])
+    got = K.curve_bucket_drain_plain(group, *lanes)
+    assert affine_points(group, got) == affine_points(
+        group, xyzz_from_jax(group, a))
+    assert torch.equal(K.curve_bucket_drain(group, *lanes), got)
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bucket_drain_plain_matches_oracle(group):
+    """Longer exceptional runs than the JAX comparison affords: +Q / -Q for
+    9 steps, P five times, -P then P, the 64x lane; from infinity, and from
+    given accumulators (one lane at infinity) over the steps [2, 7)."""
+    table, orders, gidx, stride, cnt, pts, lanes = _drain_case(
+        group, alt=9, repeat=5)
+    args = (table, orders, gidx, stride, cnt)
+    full = K.curve_bucket_drain_plain(group, *args)
+    assert affine_points(group, full) == _oracle_drain(group, pts, lanes)
+    assert bool(curve_ops(group).is_inf(full[..., [0, 3]]).all())
+    head = K.curve_bucket_drain_plain(group, *args, 0, 2)
+    head[..., 5] = curve_ops(group).inf_xyzz((1,))[..., 0]
+    part = K.curve_bucket_drain_plain(group, *args, 2, 7, acc=head)
+    want = _oracle_drain(group, pts, lanes, 2, 7)
+    heads = _oracle_drain(group, pts, lanes, 0, 2)
+    heads[5] = None
+    add = oc.g1_add if group == "g1" else oc.g2_add
+    assert affine_points(group, part) == [add(h, w) for h, w in zip(heads,
+                                                                     want)]
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -200,35 +331,35 @@ class _Args:
         return ctypes.c_void_p(a.ctypes.data)
 
 
+def _drain_body(host_lib, group, case, t_from, t_to, acc):
+    """The harness's bucket drain against the plain drain, bit for bit."""
+    table, orders, gidx, stride, cnt = case[:5]
+    A = _Args()
+    out = np.zeros((4, *((2,) if group == "g2" else ()), 8, gidx.shape[0]),
+                   np.uint32)
+    getattr(host_lib, f"ugh_{group}_bucket_drain")(
+        None if acc is None else A.p(A.u32(acc)), A.p(out), A.p(A.u32(table)),
+        *(A.p(A.i32(x)) for x in (orders, gidx, stride, cnt)),
+        ctypes.c_int32(t_from), ctypes.c_int32(t_to),
+        ctypes.c_int64(gidx.shape[0]))
+    np.testing.assert_array_equal(out, A.u32(K.curve_bucket_drain_plain(
+        group, table, orders, gidx, stride, cnt, t_from, t_to, acc)))
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_curve_lane_bodies_match_plain(host_lib, group):
+    """The bucket drain from infinity over every step and from given
+    accumulators over a window of steps; add_where; horner."""
     ops = curve_ops(group)
-    acc, table, neg, valid = _case(group)
-    orders, gidx, stride, cnt = _port_gather_args(neg, valid)
+    case = _drain_case(group, alt=5, repeat=3, long=40)
+    _drain_body(host_lib, group, case, 0, K.DRAIN_ALL, None)
+    acc, _, _, _ = _case(group)
+    start = torch.cat([acc, acc[..., :8]], -1)          # 24 lanes
+    _drain_body(host_lib, group, case, 1, 4, start)
+
     A = _Args()
     i64 = ctypes.c_int64
-    acc_u, tab_u = A.u32(acc), A.u32(table)
-    ords = [A.p(A.i32(x)) for x in (orders, gidx, stride, cnt)]
-
-    out = np.zeros_like(acc_u)
-    flag = np.zeros(N, np.uint8)
-    sticky = np.zeros(1, np.int32)
-    getattr(host_lib, f"ugh_{group}_madd_fast")(
-        A.p(acc_u), A.p(out), A.p(tab_u), i64(N), *ords, ctypes.c_int32(0),
-        A.p(flag), A.p(sticky), i64(N))
-    exp, eflag = K.curve_madd_fast_plain(group, acc, table, orders, gidx,
-                                         stride, cnt, 0)
-    np.testing.assert_array_equal(out, A.u32(exp))
-    assert flag.astype(bool).tolist() == eflag.tolist()
-    assert sticky[0] == 1
-
-    out = np.zeros_like(acc_u)
-    getattr(host_lib, f"ugh_{group}_madd_signed")(
-        A.p(acc_u), A.p(out), A.p(tab_u), i64(N), *ords, ctypes.c_int32(0),
-        i64(N))
-    np.testing.assert_array_equal(out, A.u32(K.curve_madd_signed_plain(
-        group, acc, table, orders, gidx, stride, cnt, 0)))
-
+    acc_u = A.u32(acc)
     b = torch.roll(acc, 1, -1)
     b[..., 5] = acc[..., 5]
     b[..., 6] = ops.neg(acc[..., 6:7])[..., 0]
@@ -304,6 +435,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):      # a column above the kernel's cap
         K.fr_cg_ntt(torch.zeros(8, 2048, 1, dtype=torch.int64),
                     torch.zeros(11, 8, 1024, dtype=torch.int64))
+    with pytest.raises(ValueError):      # a drain's steps run forwards
+        K.curve_bucket_drain("g1", torch.zeros(1, 2, 8, dtype=torch.int64),
+                             *(torch.zeros(1, dtype=torch.int32),) * 4, 3, 2)
     with pytest.raises(ValueError):      # the fixed base has 32 windows
         K.curve_madd_valid("g1", torch.zeros(4, 8, 1, dtype=torch.int64),
                            torch.zeros(2, 8, 8192, dtype=torch.int64),
@@ -315,7 +449,7 @@ def test_plain_versions_count_no_launches():
     K.reset_launch_counts()
     acc, table, neg, valid = _case("g1")
     orders, gidx, stride, cnt = _port_gather_args(neg, valid)
-    K.curve_madd_fast("g1", acc, table, orders, gidx, stride, cnt, 0)
+    K.curve_bucket_drain("g1", table, orders, gidx, stride, cnt, acc=acc)
     K.fr_mont_mul(acc[0], acc[1])
     assert set(K.launch_counts()) == set(K.KERNELS)
     assert all(v == 0 for v in K.launch_counts().values())

@@ -20,11 +20,12 @@ from ultragroth_tpu.ops import msm as jmsm
 from ultragroth_tpu_torch import convert
 from ultragroth_tpu_torch.constants import FR_MODULUS as R
 from ultragroth_tpu_torch.ops import limbs as lb
+from ultragroth_tpu_torch.ops.curve import table_from_planes, table_planes
 from ultragroth_tpu_torch.ops import msm as pmsm
 from ultragroth_tpu_torch.oracle import curve as oc
 from ultragroth_tpu_torch.protocol.prover import fixed_table_plan
 
-from tests.test_torch_field import (affine_points, g1_table, g2_table,
+from tests.test_torch_field import (affine_points, g1_table, point_table,
                                     random_points)
 
 
@@ -61,10 +62,10 @@ def test_msm_fixed_matches_oracle(group, c, n):
     window and flagged in inf."""
     from ultragroth_tpu_torch.ops.curve import curve_ops
     pts, sc = _case(group, n, seed=70 + c)
-    table, inf = (g1_table if group == "g1" else g2_table)(pts)
+    table, inf = point_table(group, pts)
     ftab, finf, cc = pmsm.msm_fixed_table(group, table, inf, c)
     nw = pmsm.fixed_n_windows(c)
-    assert cc == c and ftab.shape[-1] == nw * 64
+    assert cc == c and ftab.shape[0] == nw * 64
     assert finf.tolist() == inf.tolist() + [True] * (64 - n)
     got = pmsm.msm_fixed(group, ftab, finf, lb.ints_to_planes(sc[:n - 2]), c)
     assert affine_points(group, got[..., None]) == \
@@ -73,7 +74,7 @@ def test_msm_fixed_matches_oracle(group, c, n):
     ops = curve_ops(group)
     mul = oc.g1_mul if group == "g1" else oc.g2_mul
     for w in (1, nw - 1):
-        cols = ftab[..., w * 64:(w + 1) * 64]
+        cols = table_planes(ftab[w * 64:(w + 1) * 64])
         assert int(cols[..., n:].abs().sum()) == 0
         assert int(cols[..., 7].abs().sum()) == 0            # infinity
         got = affine_points(group, ops.affine_to_xyzz(
@@ -84,13 +85,13 @@ def test_msm_fixed_matches_oracle(group, c, n):
 
 def test_msm_fixed_refuses_what_it_does_not_take():
     c = 4
-    ftab = torch.zeros(2, 8, pmsm.fixed_n_windows(c) * 64, dtype=torch.int64)
+    ftab = torch.zeros(pmsm.fixed_n_windows(c) * 64, 2, 8, dtype=torch.int64)
     finf = torch.zeros(64, dtype=torch.bool)
     with pytest.raises(ValueError):      # scalars must be canonical
         pmsm.msm_fixed("g1", ftab, finf, lb.ints_to_planes([R] * 8), c)
     with pytest.raises(ValueError):      # the table was built for c = 4
         pmsm.msm_fixed("g1", ftab, finf, lb.ints_to_planes([1] * 8), 5)
-    with pytest.raises(ValueError):      # more scalars than columns
+    with pytest.raises(ValueError):      # more scalars than table points
         pmsm.msm_fixed("g1", ftab, finf, lb.ints_to_planes([1] * 65), c)
 
 
@@ -178,8 +179,9 @@ def test_msm_fixed_matches_jax(group):
     from ultragroth_tpu.protocol.prover import g1_section_to_planes
     from ultragroth_tpu_torch.ops.curve import curve_ops
     pts, sc = _case(group, 24, seed=91)
-    table, inf = g1_table(pts)
-    words = lb.planes_to_words(table.permute(1, 0, 2)).transpose(1, 0, 2)
+    planes, inf = g1_table(pts)
+    table = table_from_planes(planes)
+    words = lb.planes_to_words(planes.permute(1, 0, 2)).transpose(1, 0, 2)
     x, y, jinf = g1_section_to_planes(np.ascontiguousarray(words))
     packed, pinf, c = jmsm.msm_fixed_table("g1", x, y, jinf, c=5)
     ftab, finf = convert.fixed_table_from_jax(packed, pinf)

@@ -24,7 +24,7 @@ from ultragroth_tpu_torch.oracle import curve as oc
 from ultragroth_tpu_torch.protocol import quotient as oq
 from ultragroth_tpu_torch.protocol.transcript import root_of_unity
 
-from tests.test_torch_field import affine_points, g1_table, g2_table, sample
+from tests.test_torch_field import affine_points, point_table, sample
 
 
 def test_ntt_matches_jax_and_oracle():
@@ -93,12 +93,19 @@ def _g1_case(kind):
         pts = [oc.g1_mul(oc.G1, i + 1) for i in range(n)]
         scalars = [3] * n
     elif kind == "two_phase_skew":
-        # c = 10: 26 windows x 512 buckets > 8192 lanes -> two phases; one
-        # bucket per window and a duplicate point -> the flagged redo
+        # c = 10: 26 windows x 512 buckets, one bucket per window holding
+        # every point (the JAX loop's two phases) and a duplicate point
         n, c = 24, 10
         pts = [oc.g1_mul(oc.G1, i + 1) for i in range(n - 1)]
         pts.append(pts[0])
         scalars = [(1 << 200) + 12345] * n
+    elif kind == "dup_and_negation":
+        # one bucket per window meets P + (-P), inf + P, P + P and Q + (-Q)
+        n, c = 8, 8
+        a, b, d = (oc.g1_mul(oc.G1, rng.randrange(1, R)) for _ in range(3))
+        neg = lambda p: oc.g1_mul(p, R - 1)
+        pts = [a, neg(a), a, a, b, neg(b), d, d]
+        scalars = [rng.randrange(1 << 250)] * n
     else:                          # spare window: 254 % 2 == 0
         n, c = 12, 2
         pts = [oc.g1_mul(oc.G1, rng.randrange(1, R)) for _ in range(n)]
@@ -107,10 +114,11 @@ def _g1_case(kind):
 
 
 @pytest.mark.parametrize("kind", ["general", "all_equal_digits",
-                                  "two_phase_skew", "spare_window"])
+                                  "two_phase_skew", "spare_window",
+                                  "dup_and_negation"])
 def test_msm_g1_vs_oracle(kind):
     pts, scalars, c = _g1_case(kind)
-    table, inf = g1_table(pts)
+    table, inf = point_table("g1", pts)
     out = M.msm_g1(table, inf, lb.ints_to_planes(scalars), c=c)
     # outputs leave canonical (< q): nothing lazy escapes a kernel
     assert all(v < Q for v in lb.planes_to_ints(out.T))
@@ -122,13 +130,13 @@ def test_msm_g2_vs_oracle():
     n, c = 17, 8
     pts = [oc.g2_mul(oc.G2, rng.randrange(1, R)) for _ in range(n)]
     scalars = [rng.randrange(R) for _ in range(n)]
-    table, inf = g2_table(pts)
+    table, inf = point_table("g2", pts)
     out = M.msm_g2(table, inf, lb.ints_to_planes(scalars), c=c)
     assert affine_points("g2", out[..., None])[0] == oc.g2_msm(pts, scalars)
 
 
 def test_msm_of_no_points_is_infinity():
-    table, inf = g1_table([])
+    table, inf = point_table("g1", [])
     out = M.msm_g1(table, inf, lb.ints_to_planes([]), c=8)
     assert affine_points("g1", out[..., None]) == [None]
 
@@ -137,7 +145,7 @@ def test_msm_rejects_non_canonical_scalars():
     """A scalar >= r would silently lose points in the split top windows
     (JAX package ops/msm.py:127-143); the port refuses it."""
     pts = [oc.g1_mul(oc.G1, 2), oc.g1_mul(oc.G1, 3)]
-    table, inf = g1_table(pts)
+    table, inf = point_table("g1", pts)
     with pytest.raises(ValueError):
         M.msm_g1(table, inf, lb.ints_to_planes([1, R]), c=8)
 
@@ -160,6 +168,6 @@ def test_msm_g1_matches_jax_msm(kind):
     x, y, inf = g1_batch_to_planes(pts)
     jout = dmsm.msm_g1(x, y, inf, jlb.ints_to_planes(scalars), c=c)
     exp = g1_affine_from_device(*jax.jit(dmsm.g1_ops().to_affine)(jout))[0]
-    table, tinf = g1_table(pts)
+    table, tinf = point_table("g1", pts)
     out = M.msm_g1(table, tinf, lb.ints_to_planes(scalars), c=c)
     assert affine_points("g1", out[..., None])[0] == exp

@@ -23,7 +23,7 @@ from ultragroth_tpu_torch.protocol.prover import TorchGroth16Prover
 from ultragroth_tpu_torch.testkit.circuits import square_chain_circuit
 from ultragroth_tpu_torch.testkit.setup import groth16_setup
 
-from tests.test_torch_field import affine_points, g2_table
+from tests.test_torch_field import affine_points, point_table
 
 R_BLIND = 0x1234567890ABCDEF1234567890ABCDEF1234567890ABCDEF12345678
 S_BLIND = 0xFEDCBA0987654321FEDCBA0987654321FEDCBA0987654321FEDCBA09
@@ -90,6 +90,6 @@ def test_prove_and_g2_msm_match_jax(chain):
     x, y, inf = g2_batch_to_planes(pts)
     jout = dmsm.msm_g2(x, y, inf, jlb.ints_to_planes(scalars), c=8)
     exp = g2_affine_from_device(*jax.jit(dmsm.g2_ops().to_affine)(jout))[0]
-    table, tinf = g2_table(pts)
+    table, tinf = point_table("g2", pts)
     out = M.msm_g2(table, tinf, lb.ints_to_planes(scalars), c=8)
     assert affine_points("g2", out[..., None])[0] == exp

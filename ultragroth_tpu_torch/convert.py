@@ -2,17 +2,21 @@
 
 The JAX package holds field elements as 16 limbs of 16 bits in u32 planes
 [16, *batch]; the port as 8 limbs of 32 bits, [8, *batch] (`ops/limbs.py`).
-Both are plain bit shuffles of the same integers.  `prover_state_from_jax`
-turns the JAX provers' numpy state (what their `g1_section_to_planes` /
-`g2_section_to_planes` give, plus the coefficient and index arrays) into
-the tensors `TorchGroth16Prover` and `TorchUltraGrothProver` keep, so both
-packages can compute on one key.
+Both are plain bit shuffles of the same integers.  The JAX package keeps
+its point sets plane-major (x and y as planes over the points); the port's
+MSMs read point-major tables [N, 2, *elem] (`ops/curve.py:
+table_from_planes`).  `prover_state_from_jax` turns the JAX provers' numpy
+state (what their `g1_section_to_planes` / `g2_section_to_planes` give,
+plus the coefficient and index arrays) into the tensors
+`TorchGroth16Prover` and `TorchUltraGrothProver` keep, so both packages can
+compute on one key.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ops.curve import table_from_planes
 from .ops.limbs import limb_dtype, narrow
 
 
@@ -43,16 +47,17 @@ def from_torch(t: torch.Tensor) -> np.ndarray:
 
 
 def g1_points_from_jax(x, y, inf, device="cpu"):
-    """JAX (x [16, N], y [16, N], inf [N]) -> port (table [2, 8, N], inf)."""
-    return (torch.stack([to_torch(x, device), to_torch(y, device)]),
+    """JAX (x [16, N], y [16, N], inf [N]) -> port (table [N, 2, 8], inf)."""
+    return (table_from_planes(torch.stack([to_torch(x, device),
+                                           to_torch(y, device)])),
             torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
 
 
 def g2_points_from_jax(x, y, inf, device="cpu"):
-    """JAX ((x0, x1), (y0, y1), inf) -> port (table [2, 2, 8, N], inf)."""
+    """JAX ((x0, x1), (y0, y1), inf) -> port (table [N, 2, 2, 8], inf)."""
     pair = lambda c: torch.stack([to_torch(c[0], device),
                                   to_torch(c[1], device)])
-    return (torch.stack([pair(x), pair(y)]),
+    return (table_from_planes(torch.stack([pair(x), pair(y)])),
             torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
 
 
@@ -60,15 +65,15 @@ def fixed_table_from_jax(packed, inf, device="cpu"):
     """The JAX package's fixed-base table (`ops/msm.py:msm_fixed_table`:
     packed [K * 16, W * Npad], rows x then y, each coordinate component
     16 planes; K = 2 for G1, 4 for G2) and its inf [Npad] -> the port's
-    (table [2, 8, W * Npad] or [2, 2, 8, W * Npad], inf)."""
+    (table [W * Npad, 2, 8] or [W * Npad, 2, 2, 8], inf)."""
     p = np.asarray(packed, dtype=np.uint32)
     comps = [to_torch(p[16 * k:16 * (k + 1)], device)
              for k in range(p.shape[0] // 16)]
     if len(comps) == 2:
-        table = torch.stack(comps)
+        planes = torch.stack(comps)
     else:
-        table = torch.stack([torch.stack(comps[:2]), torch.stack(comps[2:])])
-    return (table.contiguous(),
+        planes = torch.stack([torch.stack(comps[:2]), torch.stack(comps[2:])])
+    return (table_from_planes(planes),
             torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
 
 

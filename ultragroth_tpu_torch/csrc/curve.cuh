@@ -12,11 +12,12 @@
 // In the MMA build (UG_MMA_FIELD, field.cuh) every product is warp-
 // collective, so a lane body must reach each product together with the
 // other 31 lanes of its warp: the data-dependent doublings are computed and
-// selected (as the JAX package's add_unified / madd_unified do), the fast
-// madd runs for lanes past their count and is discarded, Horner runs the
-// same number of masked doublings on every lane, and a lane past the end
-// (`live` false) computes a clamped lane's values and stores nothing.  The
-// CIOS build keeps its branches.
+// selected (as the JAX package's add_unified / madd_unified do), the bucket
+// drain runs every lane of a warp to the warp's largest count with masked
+// updates and takes the complete add when any lane of the warp needs it,
+// Horner runs the same number of masked doublings on every lane, and a lane
+// past the end (`live` false) computes a clamped lane's values and stores
+// nothing.  The CIOS build keeps its branches.
 #pragma once
 #include "field.cuh"
 
@@ -151,60 +152,126 @@ UG_HD void store_xyzz(uint32_t* p, int64_t n, int64_t i, const xyzz<F>& a) {
   store_elem(p, n, i, 2, F::exit(a.zz)); store_elem(p, n, i, 3, F::exit(a.zzz));
 }
 
-// The gather the JAX bucket loop does before its kernel (ops/msm.py:
-// 233-236), fused: lane i at step t reads order entry gidx[i] + t*stride[i]
-// (entry 0 when the lane is past its count), entry = pid*2 + sign.
+// ---------------------------------------------------------------------------
+// The bucket drain (curve_bucket_drain): every step of one bucket lane of
+// the Pippenger loop in one thread, its xyzz accumulator in registers.
+//
+// Lane i adds, for t in [t_from, min(t_to, cnt[i])), the point of order
+// entry orders[gidx[i] + t*stride[i]] (entry = pid*2 + sign: table point
+// pid, negated when sign is set).  Each step is the incomplete madd_fast;
+// where it flags (same x, or the accumulator at infinity) the step is
+// recomputed from the accumulator it started with by the complete
+// madd_unified, which also seeds a lane's first point from infinity.  On
+// every other input madd_unified selects `added`, the very value madd_fast
+// computes, so the lane ends with the coordinates of the all-complete chain:
+// those of the JAX package's drain, whose sticky flag redoes a flagged
+// drain with the complete add on every lane (ultragroth_tpu/ops/msm.py:
+// 233-292).
+//
+// The table is point-major: point p's affine (x, y) are kWords u32 words
+// at table + p*kWords, x's components then y's, 8 limbs each (the zkey's
+// own word order), read as kWords/4 aligned 16-byte loads.
+// ---------------------------------------------------------------------------
 template <class F>
-UG_HD bool gather_q(const uint32_t* table, int64_t T, const int32_t* orders,
-                    const int32_t* gidx, const int32_t* stride,
-                    const int32_t* cnt, int32_t t, int64_t i,
-                    typename F::E& qx, typename F::E& qy) {
-  bool valid = t < cnt[i];
-  int64_t pos = valid ? (int64_t)gidx[i] + (int64_t)t * stride[i] : 0;
-  int32_t ent = orders[pos];
-  int64_t pid = ent >> 1;
-  load_elem(table, T, pid, 0, qx);
-  load_elem(table, T, pid, 1, qy);
+struct PointIO {
+  static constexpr int kWords = 2 * (int)(sizeof(typename F::E) / 4);  // 16 / 32
+  static constexpr int kVecs = kWords / 4;                              // 16 B loads
+};
+
+UG_HD void elem_from_words(const uint32_t* w, fe& r) {
+#pragma unroll
+  for (int l = 0; l < 8; l++) r.v[l] = w[l];
+}
+UG_HD void elem_from_words(const uint32_t* w, fe2& r) {
+  elem_from_words(w, r.c0);
+  elem_from_words(w + 8, r.c1);
+}
+
+// the point of order entry `ent` from its kWords words
+template <class F>
+UG_HD void point_from_words(const uint32_t* w, int32_t ent, typename F::E& qx,
+                            typename F::E& qy) {
+  elem_from_words(w, qx);
+  elem_from_words(w + PointIO<F>::kWords / 2, qy);
   if (ent & 1) qy = F::neg(qy);
-  return valid;
 }
 
-// curve_madd_fast: out = valid ? acc + (+-Q) : acc; returns valid & bad
+// A fetch loads the point of one step: issue(ent) starts it, take() ends
+// it.  This one loads at take(), straight from the table (the host
+// harness); the kernels' SlotFetch (launch_common.cuh) has the next step's
+// point in flight while a step computes.
 template <class F>
-UG_HD bool lane_madd_fast(const uint32_t* acc, uint32_t* out, const uint32_t* table,
-                          int64_t T, const int32_t* orders, const int32_t* gidx,
-                          const int32_t* stride, const int32_t* cnt, int32_t t,
-                          int64_t n, int64_t i, bool live = true) {
-  xyzz<F> a = load_xyzz<F>(acc, n, i);
-  bool bad = false;
-#if UG_MMA_FIELD
-  typename F::E qx, qy;
-  const bool valid = gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
-  const xyzz<F> s = madd_fast<F>(a, qx, qy, bad);
-  if (valid) a = s;
-  bad = bad && valid;
-#else
-  if (t < cnt[i]) {
-    typename F::E qx, qy;
-    gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
-    a = madd_fast<F>(a, qx, qy, bad);
+struct DirectFetch {
+  const uint32_t* table;
+  int32_t ent;
+  UG_HD void issue(int32_t e) { ent = e; }
+  UG_HD void take(typename F::E& qx, typename F::E& qy) {
+    point_from_words<F>(table + (int64_t)(ent >> 1) * PointIO<F>::kWords, ent, qx, qy);
   }
-#endif
-  if (live) store_xyzz<F>(out, n, i, a);
-  return bad;
+};
+
+// a lane's end: min(t_to, cnt[i])
+UG_HD int32_t drain_stop(const int32_t* cnt, int32_t t_to, int64_t i) {
+  return cnt[i] < t_to ? cnt[i] : t_to;
 }
 
-// curve_madd_signed: complete acc + (+-Q), Q = infinity past the count
-template <class F>
-UG_HD void lane_madd_signed(const uint32_t* acc, uint32_t* out, const uint32_t* table,
-                            int64_t T, const int32_t* orders, const int32_t* gidx,
-                            const int32_t* stride, const int32_t* cnt, int32_t t,
-                            int64_t n, int64_t i, bool live = true) {
-  xyzz<F> a = load_xyzz<F>(acc, n, i);
-  typename F::E qx, qy;
-  bool valid = gather_q<F>(table, T, orders, gidx, stride, cnt, t, i, qx, qy);
-  const xyzz<F> s = madd_unified<F>(a, qx, qy, !valid);
-  if (live) store_xyzz<F>(out, n, i, s);
+// order entry of step t (entry 0 past the lane's end: a valid point whose
+// sum is discarded, read by the MMA build's masked steps)
+UG_HD int32_t drain_entry(const int32_t* orders, int64_t pos, int64_t stride,
+                          int32_t t, int32_t stop) {
+  return orders[t < stop ? pos + (int64_t)t * stride : 0];
+}
+
+// Does any lane that runs this step with the lane need the complete add?
+// CIOS: the lane alone.  MMA: any lane of the warp (the product is warp-
+// collective); the host build of the MMA bodies always takes it, which
+// must change nothing.
+UG_HD bool drain_vote(bool bad) {
+#if UG_MMA_FIELD && defined(__CUDA_ARCH__)
+  return __any_sync(0xffffffffu, bad);
+#elif UG_MMA_FIELD
+  (void)bad;
+  return true;
+#else
+  return bad;
+#endif
+}
+
+// Lane i's drain.  stop_all >= the lane's own stop is where its loop ends:
+// the lane's stop in the CIOS build, its warp's largest in the MMA build
+// (steps past the lane's stop compute and discard).  out may be acc.
+template <class F, class Fetch>
+UG_HD void lane_bucket_drain(const uint32_t* acc, uint32_t* out, const int32_t* orders,
+                             const int32_t* gidx, const int32_t* stride,
+                             const int32_t* cnt, int32_t t_from, int32_t t_to,
+                             int32_t stop_all, int64_t n, int64_t i, bool live,
+                             Fetch& f) {
+  using E = typename F::E;
+  xyzz<F> a = acc == nullptr ? inf_xyzz<F>() : load_xyzz<F>(acc, n, i);
+  const int32_t stop = drain_stop(cnt, t_to, i);
+  const int64_t pos = gidx[i], st = stride[i];
+  if (t_from < stop_all) {
+    f.issue(drain_entry(orders, pos, st, t_from, stop));
+    int32_t next = drain_entry(orders, pos, st, t_from + 1, stop);
+    for (int32_t t = t_from; t < stop_all; t++) {
+      E qx, qy;
+      f.take(qx, qy);
+      if (t + 1 < stop_all) {            // step t+1's point in flight
+        f.issue(next);
+        next = drain_entry(orders, pos, st, t + 2, stop);
+      }
+      const bool active = t < stop;
+      bool bad;
+      xyzz<F> s = madd_fast<F>(a, qx, qy, bad);
+      bad = bad && active;
+      if (drain_vote(bad)) {
+        const xyzz<F> u = madd_unified<F>(a, qx, qy, false);
+        if (bad) s = u;
+      }
+      if (active) a = s;
+    }
+  }
+  if (live) store_xyzz<F>(out, n, i, a);
 }
 
 // curve_madd_valid, fused with the fixed-base gather of the device set-up

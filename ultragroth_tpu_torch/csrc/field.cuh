@@ -276,32 +276,62 @@ struct Field {
 using Fr = Field<FrParams>;
 using Fq = Field<FqParams>;
 
+// The Fq product as one out-of-line call (CIOS build, on the device), for
+// the G2 bucket drain: its loop holds the fast and the complete add, ~90
+// Fq products; inlined, it needs more than a thread's 255 registers and
+// spills (as the per-step G2 kernels did).  A call keeps one product's
+// working set live.  Everywhere else, and in the MMA build (whose product
+// is already a call), it is Field::mul itself.
+#if defined(__CUDACC__) && !UG_MMA_FIELD
+template <class Pm>
+__device__ __noinline__ fe mont_mul_call(fe a, fe b) { return Field<Pm>::mul(a, b); }
+#endif
+
+template <class Pm>
+struct FieldCall : Field<Pm> {
+  UG_HD static fe mul(const fe& a, const fe& b) {
+#if defined(__CUDA_ARCH__) && !UG_MMA_FIELD
+    return mont_mul_call<Pm>(a, b);
+#else
+    return Field<Pm>::mul(a, b);
+#endif
+  }
+  UG_HD static fe sqr(const fe& a) { return mul(a, a); }
+};
+
+using FqCall = FieldCall<FqParams>;
+
 // ---------------------------------------------------------------------------
-// Fq2 = Fq[u]/(u^2 + 1), Karatsuba (ultragroth_tpu/ops/fq2.py:39-55).
+// Fq2 = Fq[u]/(u^2 + 1), Karatsuba (ultragroth_tpu/ops/fq2.py:39-55), over
+// a base field B: Fq, or FqCall (the same values).
 // ---------------------------------------------------------------------------
 struct fe2 { fe c0, c1; };
 
-struct Fq2 {
+template <class B>
+struct Fq2Over {
   using E = fe2;
-  UG_HD static fe2 zero() { return {Fq::zero(), Fq::zero()}; }
-  UG_HD static fe2 one_mont() { return {Fq::one_mont(), Fq::zero()}; }
-  UG_HD static fe2 add(const fe2& a, const fe2& b) { return {Fq::add(a.c0, b.c0), Fq::add(a.c1, b.c1)}; }
-  UG_HD static fe2 sub(const fe2& a, const fe2& b) { return {Fq::sub(a.c0, b.c0), Fq::sub(a.c1, b.c1)}; }
-  UG_HD static fe2 neg(const fe2& a) { return {Fq::neg(a.c0), Fq::neg(a.c1)}; }
-  UG_HD static bool is_zero(const fe2& a) { return Fq::is_zero(a.c0) && Fq::is_zero(a.c1); }
+  UG_HD static fe2 zero() { return {B::zero(), B::zero()}; }
+  UG_HD static fe2 one_mont() { return {B::one_mont(), B::zero()}; }
+  UG_HD static fe2 add(const fe2& a, const fe2& b) { return {B::add(a.c0, b.c0), B::add(a.c1, b.c1)}; }
+  UG_HD static fe2 sub(const fe2& a, const fe2& b) { return {B::sub(a.c0, b.c0), B::sub(a.c1, b.c1)}; }
+  UG_HD static fe2 neg(const fe2& a) { return {B::neg(a.c0), B::neg(a.c1)}; }
+  UG_HD static bool is_zero(const fe2& a) { return B::is_zero(a.c0) && B::is_zero(a.c1); }
   UG_HD static fe2 mul(const fe2& a, const fe2& b) {
-    fe t0 = Fq::mul(a.c0, b.c0);
-    fe t1 = Fq::mul(a.c1, b.c1);
-    fe t2 = Fq::mul(Fq::add(a.c0, a.c1), Fq::add(b.c0, b.c1));
-    return {Fq::sub(t0, t1), Fq::sub(Fq::sub(t2, t0), t1)};
+    fe t0 = B::mul(a.c0, b.c0);
+    fe t1 = B::mul(a.c1, b.c1);
+    fe t2 = B::mul(B::add(a.c0, a.c1), B::add(b.c0, b.c1));
+    return {B::sub(t0, t1), B::sub(B::sub(t2, t0), t1)};
   }
   UG_HD static fe2 sqr(const fe2& a) {
-    fe c0 = Fq::mul(Fq::add(a.c0, a.c1), Fq::sub(a.c0, a.c1));
-    fe t = Fq::mul(a.c0, a.c1);
-    return {c0, Fq::add(t, t)};
+    fe c0 = B::mul(B::add(a.c0, a.c1), B::sub(a.c0, a.c1));
+    fe t = B::mul(a.c0, a.c1);
+    return {c0, B::add(t, t)};
   }
-  UG_HD static fe2 exit(const fe2& a) { return {Fq::exit(a.c0), Fq::exit(a.c1)}; }
+  UG_HD static fe2 exit(const fe2& a) { return {B::exit(a.c0), B::exit(a.c1)}; }
 };
+
+using Fq2 = Fq2Over<Fq>;
+using Fq2Call = Fq2Over<FqCall>;
 
 // ---------------------------------------------------------------------------
 // Plane-major I/O: element e of lane i, limb l sits at ptr[(e*8 + l)*n + i]

@@ -1,4 +1,5 @@
 // G2 instances of the curve kernels (field Fq2); see curve_kernels.inc.
 #define UG_F ug::Fq2
+#define UG_DRAIN_F ug::Fq2Call
 #define UG_NAME(x) UG_SYM(g2_##x)
 #include "curve_kernels.inc"

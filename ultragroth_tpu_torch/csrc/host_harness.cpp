@@ -7,29 +7,27 @@
 // place of the tensor-core tile products.
 #include "curve.cuh"
 
+// The bucket drain: lane by lane, each loading its points at the step that
+// adds them (DirectFetch).  The MMA build's lanes run to the largest end of
+// their group of 32 (the warp of the kernel), as the kernel's do.
 #define UG_HOST_CURVE(G, F)                                                   \
-  extern "C" int ugh_##G##_madd_fast(const void* acc, void* out,              \
-      const void* table, int64_t T, const void* orders, const void* gidx,     \
-      const void* stride, const void* cnt, int32_t t, void* flag,             \
-      void* sticky, int64_t n) {                                              \
+  extern "C" int ugh_##G##_bucket_drain(const void* acc, void* out,           \
+      const void* table, const void* orders, const void* gidx,                \
+      const void* stride, const void* cnt, int32_t t_from, int32_t t_to,      \
+      int64_t n) {                                                            \
+    const int32_t* c = (const int32_t*)cnt;                                   \
     for (int64_t i = 0; i < n; i++) {                                         \
-      bool bad = ug::lane_madd_fast<F>((const uint32_t*)acc, (uint32_t*)out,  \
-          (const uint32_t*)table, T, (const int32_t*)orders,                  \
-          (const int32_t*)gidx, (const int32_t*)stride,                       \
-          (const int32_t*)cnt, t, n, i);                                      \
-      ((uint8_t*)flag)[i] = bad;                                              \
-      if (bad && sticky) *(int32_t*)sticky |= 1;                              \
+      int32_t stop_all = ug::drain_stop(c, t_to, i);                          \
+      if (UG_MMA_FIELD)                                                       \
+        for (int64_t j = i & ~(int64_t)31; j < (i | 31) + 1 && j < n; j++) {  \
+          const int32_t s = ug::drain_stop(c, t_to, j);                       \
+          stop_all = s > stop_all ? s : stop_all;                             \
+        }                                                                     \
+      ug::DirectFetch<F> f{(const uint32_t*)table, 0};                        \
+      ug::lane_bucket_drain<F>((const uint32_t*)acc, (uint32_t*)out,          \
+          (const int32_t*)orders, (const int32_t*)gidx,                       \
+          (const int32_t*)stride, c, t_from, t_to, stop_all, n, i, true, f);  \
     }                                                                         \
-    return 0;                                                                 \
-  }                                                                           \
-  extern "C" int ugh_##G##_madd_signed(const void* acc, void* out,            \
-      const void* table, int64_t T, const void* orders, const void* gidx,     \
-      const void* stride, const void* cnt, int32_t t, int64_t n) {            \
-    for (int64_t i = 0; i < n; i++)                                           \
-      ug::lane_madd_signed<F>((const uint32_t*)acc, (uint32_t*)out,           \
-          (const uint32_t*)table, T, (const int32_t*)orders,                  \
-          (const int32_t*)gidx, (const int32_t*)stride,                       \
-          (const int32_t*)cnt, t, n, i);                                      \
     return 0;                                                                 \
   }                                                                           \
   extern "C" int ugh_##G##_add_where(const void* a, const void* b,            \

@@ -133,15 +133,28 @@ _SIGNATURES = {
 }
 for _g in ("g1", "g2"):
     _SIGNATURES.update({
-        f"ug_{_g}_madd_fast": [_P, _P, _P, _I64, _P, _P, _P, _P, _I32, _P,
-                               _P, _I64, _P],
-        f"ug_{_g}_madd_signed": [_P, _P, _P, _I64, _P, _P, _P, _P, _I32,
-                                 _I64, _P],
+        f"ug_{_g}_bucket_drain": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                                  _I64, _P],
+        f"ug_{_g}_bucket_drain_info": [_P, _P, _P],
         f"ug_{_g}_madd_valid": [_P, _P, _P, _P, _I64, _P, ctypes.c_int,
                                 _I64, _P],
         f"ug_{_g}_add_where": [_P, _P, _P, _P, _I64, _P],
         f"ug_{_g}_horner": [_P, _I64, ctypes.c_int, _P],
     })
+
+
+def drain_info(mode: str = "cios") -> dict:
+    """{group: (registers, local bytes a thread, resident 128-thread blocks
+    per SM)} of the `mode` build's bucket drain kernels."""
+    fns = load(mode)
+    out = {}
+    for g in ("g1", "g2"):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        rc = fns[f"ug_{g}_bucket_drain_info"](*(ctypes.byref(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"{g}_bucket_drain ({mode}): CUDA error {rc}")
+        out[g] = tuple(v.value for v in vals)
+    return out
 
 
 def load(mode: str = "cios") -> dict:

@@ -10,6 +10,8 @@ Encodings: a field element is [8, *batch] (Fq) or [2, 8, *batch] (Fq2).
 An xyzz batch is ONE tensor [4, *elem, *batch] = (X, Y, ZZ, ZZZ), infinity
 <=> ZZ == 0; an affine batch is [2, *elem, *batch] = (x, y) with infinity
 carried by a separate bool mask [*batch] (the zkey writes it as (0, 0)).
+A point table of the MSMs is point-major, [N, 2, *elem] (`table_from_
+planes`): point i's affine words are contiguous, in the zkey's own order.
 """
 from __future__ import annotations
 
@@ -136,6 +138,19 @@ class CurveOps:
         inv = self.F.batch_inv_mont(both)
         xa, ya = self._mul_many([(p[0], inv[..., 0]), (p[1], inv[..., 1])])
         return xa, ya, inf
+
+
+def table_from_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Affine planes [2, *elem, N] -> the point-major table [N, 2,
+    *elem] of the MSMs, which the bucket drain gathers a point at a
+    time (csrc/curve.cuh)."""
+    return planes.movedim(-1, 0).contiguous()
+
+
+def table_planes(table: torch.Tensor) -> torch.Tensor:
+    """Point-major table [N, 2, *elem] -> affine planes [2, *elem,
+    N] (a view)."""
+    return table.movedim(0, -1)
 
 
 def g1_ops() -> CurveOps:

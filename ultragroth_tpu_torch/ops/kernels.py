@@ -1,4 +1,4 @@
-"""The port's kernel registry: eight CUDA kernels (the curve ones in a G1
+"""The port's kernel registry: the CUDA kernels (the curve ones in a G1
 and a G2 instance), each with its plain PyTorch version beside it.
 
 Twin of the JAX package's `ops/kernels.py`, which pairs each Pallas kernel
@@ -22,7 +22,9 @@ nothing, as in the JAX package, whose plain path never reaches
 
 Tensor contract (plane-major, see `limbs.py`):
   Fr element batch  [8, *batch]            xyzz G1 [4, 8, n], G2 [4, 2, 8, n]
-  affine table G1   [2, 8, T], G2 [2, 2, 8, T]
+  affine table G1   [2, 8, T], G2 [2, 2, 8, T]   (curve_madd_valid)
+  MSM point table G1 [T, 2, 8], G2 [T, 2, 2, 8]  (point-major: the bucket
+                    drain and its plain versions, `curve.table_from_planes`)
   on CUDA the limbs are int32 (u32 bit patterns), every index int32, every
   flag bool; everything contiguous.
 
@@ -38,7 +40,7 @@ import threading
 
 import torch
 
-from .curve import curve_ops
+from .curve import curve_ops, table_planes
 from .field import fq, fr
 
 KERNELS = {
@@ -52,10 +54,8 @@ KERNELS = {
 }
 for _g in ("g1", "g2"):
     KERNELS.update({
-        f"{_g}_madd_fast": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
-                            "ultragroth_tpu/ops/kernels.py:102"),
-        f"{_g}_madd_signed": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
-                              "ultragroth_tpu/ops/kernels.py:77"),
+        f"{_g}_bucket_drain": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                               "ultragroth_tpu/ops/kernels.py:102"),
         f"{_g}_madd_valid": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                              "ultragroth_tpu/ops/kernels.py:64"),
         f"{_g}_add_where": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
@@ -138,22 +138,6 @@ def _launch(name: str, launcher: str, *args) -> None:
 
 def _elem_shape(group: str) -> tuple:
     return (8,) if group == "g1" else (2, 8)
-
-
-def _madd_out(group, acc, table, orders, gidx, stride, cnt, out):
-    """Check the madd kernels' CUDA arguments; return the output buffer."""
-    n = acc.shape[-1]
-    e = _elem_shape(group)
-    _check(acc, torch.int32, (4, *e, n), "acc")
-    _check(table, torch.int32, name="table")
-    if tuple(table.shape[:-1]) != (2, *e):
-        raise ValueError(f"table: shape {tuple(table.shape)}")
-    _check(orders, torch.int32, name="orders")
-    for nm, v in (("gidx", gidx), ("stride", stride), ("cnt", cnt)):
-        _check(v, torch.int32, (n,), nm)
-    out = torch.empty_like(acc) if out is None else out
-    _check(out, torch.int32, acc.shape, "out")
-    return out
 
 
 # -- fr_mont_mul ---------------------------------------------------------------
@@ -300,82 +284,99 @@ def fr_cg_ntt(x: torch.Tensor, tws: torch.Tensor) -> torch.Tensor:
 def gather_points_plain(group, table, orders, gidx, stride, cnt, t: int):
     """The bucket loop's per-step point fetch: lane i reads order entry
     gidx[i] + t*stride[i] (entry 0 past its count), entry = pid*2 + sign,
-    and takes table point pid, negated when sign is set.
-    Returns (qx, qy, valid)."""
+    and takes point pid of the point-major table, negated when sign is
+    set.  Returns (qx, qy, valid)."""
     ops = curve_ops(group)
     valid = t < cnt
     pos = torch.where(valid, gidx.long() + t * stride.long(),
                       torch.zeros_like(gidx, dtype=torch.long))
     ent = orders.long()[pos]
-    q = table[..., ent >> 1]
+    q = table_planes(table[ent >> 1])
     neg = (ent & 1) != 0
     return q[0], torch.where(neg, ops.F.neg(q[1]), q[1]), valid
 
 
-def curve_madd_fast_plain(group, acc, table, orders, gidx, stride, cnt, t,
-                          sticky=None):
+def curve_madd_fast_plain(group, acc, table, orders, gidx, stride, cnt, t):
+    """One step of the bucket loop's common case, the JAX package's
+    `curve_madd_fast` with the gather: out = valid ? acc + (+-Q) : acc and
+    flag = valid & (x-collision | acc at infinity), valid = t < cnt."""
     ops = curve_ops(group)
     qx, qy, valid = gather_points_plain(group, table, orders, gidx, stride,
                                         cnt, t)
     added, bad = ops.madd_fast(acc, qx, qy)
-    flag = bad & valid
-    if sticky is not None:
-        sticky |= flag.any().to(sticky.dtype)
-    return ops.select(valid, added, acc), flag
-
-
-def curve_madd_fast(group: str, acc, table, orders, gidx, stride, cnt,
-                    t: int, out=None, sticky=None):
-    """Incomplete signed mixed add of the bucket loop's common case, with
-    the point gather fused: out = valid ? acc + (+-Q) : acc and flag =
-    valid & (x-collision | acc at infinity), valid = t < cnt.  `out` may
-    be `acc` (in place, saves a buffer per step); `sticky` ([1] int32)
-    is OR-ed with 1 when any lane flags."""
-    if not _on_cuda(acc):
-        res, flag = curve_madd_fast_plain(group, acc, table, orders, gidx,
-                                          stride, cnt, t, sticky)
-        if out is not None:
-            out.copy_(res)
-            res = out
-        return res, flag
-    out = _madd_out(group, acc, table, orders, gidx, stride, cnt, out)
-    n = acc.shape[-1]
-    flag = torch.empty(n, dtype=torch.bool, device=acc.device)
-    if sticky is not None:
-        _check(sticky, torch.int32, (1,), "sticky")
-    _launch(f"{group}_madd_fast", f"ug_{group}_madd_fast", acc.data_ptr(),
-            out.data_ptr(), table.data_ptr(), table.shape[-1],
-            orders.data_ptr(), gidx.data_ptr(), stride.data_ptr(),
-            cnt.data_ptr(), t, flag.data_ptr(),
-            None if sticky is None else sticky.data_ptr(), n)
-    return out, flag
+    return ops.select(valid, added, acc), bad & valid
 
 
 def curve_madd_signed_plain(group, acc, table, orders, gidx, stride, cnt, t):
+    """One complete step, the JAX package's `curve_madd_signed` with the
+    gather: acc + (+-Q), Q at infinity where t >= cnt."""
     ops = curve_ops(group)
     qx, qy, valid = gather_points_plain(group, table, orders, gidx, stride,
                                         cnt, t)
     return ops.madd_unified(acc, qx, qy, ~valid)
 
 
-def curve_madd_signed(group: str, acc, table, orders, gidx, stride, cnt,
-                      t: int, out=None):
-    """Complete signed mixed add with the fused gather: acc + (+-Q), Q at
-    infinity where t >= cnt.  Seeds every bucket and redoes a flagged
-    drain.  `out` may be `acc`."""
-    if not _on_cuda(acc):
-        res = curve_madd_signed_plain(group, acc, table, orders, gidx,
-                                      stride, cnt, t)
-        if out is not None:
-            out.copy_(res)
-            res = out
-        return res
-    out = _madd_out(group, acc, table, orders, gidx, stride, cnt, out)
-    n = acc.shape[-1]
-    _launch(f"{group}_madd_signed", f"ug_{group}_madd_signed",
-            acc.data_ptr(), out.data_ptr(), table.data_ptr(),
-            table.shape[-1], orders.data_ptr(), gidx.data_ptr(),
-            stride.data_ptr(), cnt.data_ptr(), t, n)
+DRAIN_ALL = (1 << 31) - 1
+"""A `t_to` past every count: each lane drains to its own count."""
+
+
+def curve_bucket_drain_plain(group, table, orders, gidx, stride, cnt,
+                             t_from: int = 0, t_to: int = DRAIN_ALL,
+                             acc=None):
+    """Steps t_from .. min(t_to, cnt[i]) - 1 of every lane, one step at a
+    time over the lanes that still run: the fast step, and the complete
+    step where it flags."""
+    ops = curve_ops(group)
+    n = gidx.shape[0]
+    acc = (ops.inf_xyzz((n,), table.device, table.dtype) if acc is None
+           else acc.clone())
+    stop = min(t_to, int(cnt.max())) if n else t_from
+    for t in range(t_from, stop):
+        run = torch.nonzero(cnt > t).squeeze(1)
+        lanes = (orders, gidx[run], stride[run], cnt[run], t)
+        a = acc[..., run]
+        out, flag = curve_madd_fast_plain(group, a, table, *lanes)
+        if bool(flag.any()):
+            out = ops.select(flag, curve_madd_signed_plain(group, a, table,
+                                                           *lanes), out)
+        acc[..., run] = out
+    return acc
+
+
+def curve_bucket_drain(group: str, table, orders, gidx, stride, cnt,
+                       t_from: int = 0, t_to: int = DRAIN_ALL, acc=None):
+    """The bucket loop of the MSMs as ONE launch: lane i adds, for t in
+    [t_from, min(t_to, cnt[i])), the point of order entry gidx[i] +
+    t*stride[i] (entry = pid*2 + sign) of the point-major table [T, 2,
+    *elem] to its xyzz accumulator: the incomplete `curve_madd_fast`
+    step, redone by the complete `curve_madd_signed` step where it flags.
+    acc: the accumulators at t_from, [4, *elem, n] (None: infinity).
+    Returns the accumulators after the lanes' last steps, canonical."""
+    if not 0 <= t_from <= t_to:
+        raise ValueError(f"curve_bucket_drain: steps [{t_from}, {t_to})")
+    if not _on_cuda(table):
+        return curve_bucket_drain_plain(group, table, orders, gidx, stride,
+                                        cnt, t_from, t_to, acc)
+    n = gidx.shape[0]
+    e = _elem_shape(group)
+    _check(table, torch.int32, name="table")
+    if tuple(table.shape[1:]) != (2, *e) or table.data_ptr() % 16:
+        raise ValueError(f"table: shape {tuple(table.shape)} (16-byte "
+                         "aligned point-major rows wanted)")
+    _check(orders, torch.int32, name="orders")
+    for nm, v in (("gidx", gidx), ("stride", stride), ("cnt", cnt)):
+        _check(v, torch.int32, (n,), nm)
+    if acc is not None:
+        _check(acc, torch.int32, (4, *e, n), "acc")
+    out = torch.empty((4, *e, n), dtype=torch.int32, device=table.device)
+    if n == 0:
+        return out
+    if orders.numel() == 0:
+        raise ValueError("curve_bucket_drain: no order entries")
+    _launch(f"{group}_bucket_drain", f"ug_{group}_bucket_drain",
+            None if acc is None else acc.data_ptr(), out.data_ptr(),
+            table.data_ptr(), orders.data_ptr(), gidx.data_ptr(),
+            stride.data_ptr(), cnt.data_ptr(), t_from, t_to, n)
     return out
 
 

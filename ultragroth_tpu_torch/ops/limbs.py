@@ -51,21 +51,24 @@ def ints_to_words(values) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u4").reshape(-1, NLIMBS).copy()
 
 
+def words_to_tensor(words: np.ndarray, device="cpu") -> torch.Tensor:
+    """Wire words [..., 8] u32 -> the same layout on `device`, in the
+    device's limb dtype."""
+    words = np.ascontiguousarray(words, dtype=np.uint32)
+    if torch.device(device).type == "cuda":
+        # a witness parsed in place from read-only bytes is copied once:
+        # torch.from_numpy takes writable arrays only
+        words = np.require(words, requirements="W")
+        return torch.from_numpy(words.view(np.int32)).to(device)
+    return torch.from_numpy(words.astype(np.int64))
+
+
 def words_to_planes(words: np.ndarray, device="cpu") -> torch.Tensor:
     """Wire words [..., 8] u32 -> limb planes [8, ...] on `device`.
 
     Uploads the compact u32 form and moves the limb axis on the device
     (the twin of the JAX package's `words_to_planes_device`)."""
-    words = np.ascontiguousarray(words, dtype=np.uint32)
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        # a witness parsed in place from read-only bytes is copied once:
-        # torch.from_numpy takes writable arrays only
-        words = np.require(words, requirements="W")
-        t = torch.from_numpy(words.view(np.int32)).to(dev)
-    else:
-        t = torch.from_numpy(words.astype(np.int64))
-    return t.movedim(-1, 0).contiguous()
+    return words_to_tensor(words, device).movedim(-1, 0).contiguous()
 
 
 def ints_to_planes(values, device="cpu") -> torch.Tensor:

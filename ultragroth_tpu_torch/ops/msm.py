@@ -8,26 +8,23 @@ their stages), same algorithm and same stage contracts:
      254 % c == 0;
   2. bucket accumulation for ALL windows and buckets at once: points sorted
      by bucket (`torch.sort(stable=True)` with pid*2+sign carried as the
-     value), every (window, bucket) lane adds its t-th point per step
-     through ONE `curve_madd_fast` launch that gathers its own point;
-     skewed top windows split into sub-lanes (`_split_factor`); two phases
-     (all lanes to the kb-th largest count, then the kb heaviest lanes);
+     value), skewed top windows split into sub-lanes (`_split_factor`), and
+     every (window, bucket) lane drains its points in ONE
+     `curve_bucket_drain` launch that gathers its own points from the
+     point-major table;
   3. bucket reduction sum_i (i+1) B_i by binary decomposition, every level
      one `curve_add_where` launch;
   4. window combine: `curve_horner_scale` (lane w doubled c*w times), then
      a log2(W) pairwise fold.
 
-Host loops replace the JAX control flow:
-  * the `lax.while_loop` with a device trip count becomes a Python loop
-    over steps; `max_count` and `end_a` are read back ONCE per MSM;
-  * the sticky-flag `lax.cond` becomes one readback of a device flag word
-    after each drain (`curve_madd_fast` ORs 1 into it when any lane
-    flags); when set, the drain is redone from its saved start with the
-    complete `curve_madd_signed`.  Sound because the FIRST exceptional
-    step is caught while the accumulator is still valid;
-  * `lax.sort(num_keys=1)` becomes `torch.sort(stable=True)`, and
-    `lax.top_k` becomes `torch.topk` (ties may resolve differently; any
-    kb lanes of largest count drain every point, see `_accumulate`);
+Host loops and kernels replace the JAX control flow:
+  * the bucket loop's `lax.while_loop` over steps, its sticky-flag
+    `lax.cond` redo and its two phases (all lanes to the kb-th largest
+    count, then the kb heaviest lanes, merged) become one drain launch in
+    which each lane loops to its own count and redoes an exceptional step
+    alone with the complete add; it reads nothing back to the host, and
+    each lane ends with the coordinates of the JAX drain's lane;
+  * `lax.sort(num_keys=1)` becomes `torch.sort(stable=True)`;
   * the width-ladder padding of `_add_all` and the power-of-two padding of
     `_pad_pow2` only shared compiled shapes, and are dropped.
 
@@ -39,7 +36,8 @@ tensor ops of the host loop.
 Scalars are STANDARD-form Fr [8, N] and must be canonical (< r):
 `_split_factor` sizes the top windows' lanes from r, and a larger scalar
 would silently drop points, so `msm` checks and raises.  Points are
-Montgomery-form affine tables [2, *elem, N] with an infinity mask [N].
+Montgomery-form affine point-major tables [N, 2, *elem]
+(`curve.table_from_planes`) with an infinity mask [N].
 """
 from __future__ import annotations
 
@@ -47,7 +45,7 @@ import torch
 
 from ..constants import FR_MODULUS
 from . import kernels
-from .curve import curve_ops
+from .curve import curve_ops, table_planes
 from .limbs import int_to_limbs, widen
 
 SCALAR_BITS = 254          # BN254 r bit length
@@ -116,16 +114,13 @@ def _signed_digits(s64: torch.Tensor, c: int, n_windows: int):
 
 
 def _accumulate(group: str, table, orders, counts, c: int, splits):
-    """Bucket accumulation for all windows, two-phase (JAX package's
-    `_bucket_accumulate_all`).  orders [W, N] int32 entries pid*2+sign,
-    counts [W, 2^(c-1)].  Returns xyzz sub-lane accumulators
-    [4, *elem, W, 2^(c-1)]."""
-    ops = curve_ops(group)
+    """Bucket accumulation for all windows (JAX package's
+    `_bucket_accumulate_all`) as ONE drain launch.  orders [W, N] int32
+    entries pid*2+sign, counts [W, 2^(c-1)].  Returns xyzz sub-lane
+    accumulators [4, *elem, W, 2^(c-1)]."""
     dev = table.device
-    dtype = table.dtype
     n_buckets = 1 << (c - 1)
     n_windows, n = orders.shape
-    lanes = n_windows * n_buckets
     counts = counts.long()
     offsets = torch.cat([torch.zeros((n_windows, 1), dtype=torch.long,
                                      device=dev),
@@ -138,57 +133,11 @@ def _accumulate(group: str, table, orders, counts, c: int, splits):
     cnt = counts.gather(1, d)
     cnt = torch.clamp(cnt - j + split_w - 1, min=0) // split_w
     w_off = (torch.arange(n_windows, device=dev) * n)[:, None]
-    orders_f = orders.reshape(-1).contiguous()
     gidx = (w_off + base).reshape(-1).to(torch.int32).contiguous()
     stride = split_w.expand(-1, n_buckets).reshape(-1).to(torch.int32).contiguous()
-    cnt_f = cnt.reshape(-1)
-
-    two_phase = lanes > 8192
-    kb = lanes // 8
-    max_count = cnt_f.max()
-    end_a = (torch.minimum(torch.clamp(torch.sort(cnt_f).values[lanes - kb],
-                                       min=1), max_count)
-             if two_phase else max_count)
-    max_count, end_a = (int(v) for v in torch.stack([max_count, end_a]).tolist())
-    cnt32 = cnt_f.to(torch.int32).contiguous()
-
-    def seed(gi, st, cn, t0, width):
-        acc = ops.inf_xyzz((width,), dev, dtype).contiguous()
-        return kernels.curve_madd_signed(group, acc, table, orders_f, gi, st,
-                                         cn, t0, out=acc)
-
-    def drain(acc, gi, st, cn, t_from, t_to):
-        """Fast madd steps t_from..t_to-1 in place; one readback of the
-        sticky flag; a flagged drain is redone with the complete add."""
-        if t_from >= t_to:
-            return acc
-        start = acc.clone()
-        sticky = torch.zeros(1, dtype=torch.int32, device=dev)
-        for t in range(t_from, t_to):
-            kernels.curve_madd_fast(group, acc, table, orders_f, gi, st, cn,
-                                    t, out=acc, sticky=sticky)
-        if int(sticky.item()) == 0:
-            return acc
-        acc = start
-        for t in range(t_from, t_to):
-            kernels.curve_madd_signed(group, acc, table, orders_f, gi, st,
-                                      cn, t, out=acc)
-        return acc
-
-    acc = seed(gidx, stride, cnt32, 0, lanes)
-    acc = drain(acc, gidx, stride, cnt32, 1, end_a)
-    if two_phase and end_a < max_count:
-        # lanes with count > end_a number fewer than kb, so the kb largest
-        # hold all of them whichever way ties fall
-        ids = torch.topk(cnt_f, kb).indices
-        gi_b = gidx[ids].contiguous()
-        st_b = stride[ids].contiguous()
-        cn_b = cnt32[ids].contiguous()
-        acc_b = seed(gi_b, st_b, cn_b, end_a, kb)
-        acc_b = drain(acc_b, gi_b, st_b, cn_b, end_a + 1, max_count)
-        merged = kernels.curve_add_where(group, acc[..., ids].contiguous(),
-                                         acc_b)
-        acc[..., ids] = merged
+    acc = kernels.curve_bucket_drain(
+        group, table, orders.reshape(-1).contiguous(), gidx, stride,
+        cnt.reshape(-1).to(torch.int32).contiguous())
     return acc.reshape(acc.shape[:-1] + (n_windows, n_buckets))
 
 
@@ -257,15 +206,15 @@ def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
         scalars: torch.Tensor, c: int) -> torch.Tensor:
     """sum_i scalars[i] * P_i as ONE xyzz point [4, *elem].
 
-    table: [2, *elem, N] Montgomery affine (x, y); inf: [N] bool;
-    scalars: [8, N] standard-form Fr planes, each < r (checked)."""
+    table: [N, 2, *elem] point-major Montgomery affine (x, y); inf: [N]
+    bool; scalars: [8, N] standard-form Fr planes, each < r (checked)."""
     ops = curve_ops(group)
     dev = table.device
-    n = table.shape[-1]
+    n = table.shape[0]
     if scalars.shape != (8, n) or inf.shape != (n,):
         raise ValueError(f"msm: table {tuple(table.shape)}, inf "
                          f"{tuple(inf.shape)}, scalars {tuple(scalars.shape)}")
-    if n == 0:      # the kernels read order entry 0 for idle lanes
+    if n == 0:      # the drain's masked steps read order entry 0
         return ops.inf_xyzz((1,), dev, table.dtype)[..., 0]
     s64 = widen(scalars)
     if not bool(_scalars_below_r(s64)):
@@ -303,12 +252,12 @@ def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
 
 
 def msm_g1(table, inf, scalars, c: int = 16):
-    """G1 MSM: table [2, 8, N]; returns xyzz [4, 8]."""
+    """G1 MSM: table [N, 2, 8]; returns xyzz [4, 8]."""
     return msm("g1", table, inf, scalars, c)
 
 
 def msm_g2(table, inf, scalars, c: int = 16):
-    """G2 MSM: table [2, 2, 8, N]; returns xyzz [4, 2, 8]."""
+    """G2 MSM: table [N, 2, 2, 8]; returns xyzz [4, 2, 8]."""
     return msm("g2", table, inf, scalars, c)
 
 
@@ -352,18 +301,15 @@ def default_fixed_window(n: int) -> int:
     return 10
 
 
-def _to_affine_chunked(group: str, pts: torch.Tensor) -> torch.Tensor:
-    """xyzz [4, *elem, n] -> Montgomery affine [2, *elem, n], infinity as
-    (0, 0), in passes of AFFINE_CHUNK lanes (one host inversion each)."""
+def _to_affine_rows(group: str, pts: torch.Tensor, out: torch.Tensor) -> None:
+    """xyzz [4, *elem, n] -> Montgomery affine into the point-major rows
+    out [n, 2, *elem], infinity as (0, 0), in passes of AFFINE_CHUNK
+    lanes (one host inversion each)."""
     ops = curve_ops(group)
-    n = pts.shape[-1]
-    out = torch.empty((2,) + tuple(pts.shape[1:]), dtype=pts.dtype,
-                      device=pts.device)
-    for a in range(0, n, AFFINE_CHUNK):
+    for a in range(0, pts.shape[-1], AFFINE_CHUNK):
         x, y, _ = ops.to_affine(pts[..., a:a + AFFINE_CHUNK])
-        out[0, ..., a:a + AFFINE_CHUNK] = x
-        out[1, ..., a:a + AFFINE_CHUNK] = y
-    return out
+        out[a:a + AFFINE_CHUNK, 0] = x.movedim(-1, 0)
+        out[a:a + AFFINE_CHUNK, 1] = y.movedim(-1, 0)
 
 
 @torch.inference_mode()
@@ -371,16 +317,16 @@ def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
                     c: int | None = None):
     """The fixed-base table of one point set (once per circuit).
 
-    table [2, *elem, N] Montgomery affine, inf [N].  N is padded to a power
-    of two >= 64 (padding points at infinity).  Returns (table [2, *elem,
-    W * Npad] whose column w * Npad + i is affine 2^(c*w) * P_i, inf [Npad],
-    c).  The doublings are `curve_add_where(P, P)` launches (its complete
-    add doubles where both sides are equal); the W * Npad points go to
-    affine in passes of AFFINE_CHUNK lanes.  Memory: W * Npad * 64 B for
-    G1, 128 B for G2."""
+    table [N, 2, *elem] point-major Montgomery affine, inf [N].  N is
+    padded to a power of two >= 64 (padding points at infinity).  Returns
+    (table [W * Npad, 2, *elem] whose row w * Npad + i is affine
+    2^(c*w) * P_i, inf [Npad], c).  The doublings are `curve_add_where(P,
+    P)` launches (its complete add doubles where both sides are equal);
+    each window's Npad points go to affine straight into their rows.
+    Memory: W * Npad * 64 B for G1, 128 B for G2, one copy."""
     ops = curve_ops(group)
     n = inf.shape[0]
-    if table.shape[-1] != n:
+    if table.shape[0] != n:
         raise ValueError(f"msm_fixed_table: table {tuple(table.shape)}, inf "
                          f"{tuple(inf.shape)}")
     if c is None:
@@ -389,20 +335,18 @@ def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
     dev = table.device
     inf = torch.cat([inf.to(dev), torch.ones(size - n, dtype=torch.bool,
                                              device=dev)])
-    base = torch.zeros(tuple(table.shape[:-1]) + (size,), dtype=table.dtype,
-                       device=dev)
-    base[..., :n] = table
-    base = torch.where(inf, torch.zeros_like(base), base)   # inf -> (0, 0)
     nw = fixed_n_windows(c)
+    out = torch.zeros((nw * size,) + tuple(table.shape[1:]),
+                      dtype=table.dtype, device=dev)
+    out[:n] = table
+    out[:size][inf] = 0                                   # inf -> (0, 0)
+    base = table_planes(out[:size])
     cur = ops.affine_to_xyzz(base[0], base[1], inf).contiguous()
-    levels = []
-    for _ in range(1, nw):
+    for w in range(1, nw):
         for _ in range(c):
             cur = kernels.curve_add_where(group, cur, cur)
-        levels.append(cur)
-    upper = _to_affine_chunked(group, torch.cat(levels, dim=-1)) if levels \
-        else base[..., :0]
-    return torch.cat([base, upper], dim=-1).contiguous(), inf, c
+        _to_affine_rows(group, cur, out[w * size:(w + 1) * size])
+    return out, inf, c
 
 
 def _fold_windows(group: str, acc: torch.Tensor) -> torch.Tensor:
@@ -429,7 +373,7 @@ def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
     The JAX package sorts and counts per window row (`ops/msm.py:628-645`,
     a TPU compile work-around); here it is the variable-base MSM's own
     stable sort per row and one bincount.  Each (window, bucket) lane
-    accumulates the table columns of its window's points, so the bucket
+    accumulates the table rows of its window's points, so the bucket
     loop is `_accumulate`'s, with no sub-lane splits (the top window's few
     digits only leave its lanes short)."""
     ops = curve_ops(group)
@@ -438,7 +382,7 @@ def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
     nw = fixed_n_windows(c)
     n = scalars.shape[-1]
     if (scalars.shape[0] != 8 or n > size
-            or tuple(table.shape[-1:]) != (nw * size,)):
+            or table.shape[0] != nw * size):
         raise ValueError(f"msm_fixed: table {tuple(table.shape)}, inf "
                          f"{tuple(inf.shape)}, scalars {tuple(scalars.shape)}"
                          f", c = {c}")
@@ -450,7 +394,7 @@ def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
     if n < size:
         s64 = torch.cat([s64, torch.zeros((8, size - n), dtype=s64.dtype,
                                           device=s64.device)], dim=1)
-    # window w of point i reads table column w * size + i
+    # window w of point i reads table row w * size + i
     orders, counts = _bucket_orders(
         s64, inf.to(dev), c, nw,
         torch.arange(nw * size, device=dev).reshape(nw, size))

@@ -50,22 +50,21 @@ from .groth16 import (Proof, decode_g1, decode_g2, finalize_proof,
 from .ultragroth import derive_challenge, finalize_ultragroth
 
 
-def g1_section_to_planes(arr: np.ndarray, device="cpu"):
-    """zkey G1 section [N, 2, 8] u32 Montgomery words -> (table [2, 8, N],
-    inf [N]); the zkey writes infinity as (0, 0)."""
-    table = lb.words_to_planes(arr.transpose(1, 0, 2), device)   # [8, 2, N]
+def g1_section_to_table(arr: np.ndarray, device="cpu"):
+    """zkey G1 section [N, 2, 8] u32 Montgomery words -> (the point-major
+    table [N, 2, 8] the MSMs read, inf [N]); the zkey writes infinity as
+    (0, 0)."""
     inf = (arr.reshape(arr.shape[0], -1) == 0).all(axis=-1)
-    return (table.permute(1, 0, 2).contiguous(),
+    return (lb.words_to_tensor(arr, device),
             torch.from_numpy(inf).to(device))
 
 
-def g2_section_to_planes(arr: np.ndarray, device="cpu"):
-    """zkey G2 section [N, 4, 8] -> (table [2, 2, 8, N], inf [N])."""
+def g2_section_to_table(arr: np.ndarray, device="cpu"):
+    """zkey G2 section [N, 4, 8] -> (table [N, 2, 2, 8], inf [N])."""
     n = arr.shape[0]
-    table = lb.words_to_planes(arr.transpose(1, 0, 2), device)   # [8, 4, N]
-    table = table.permute(1, 0, 2).reshape(2, 2, 8, n).contiguous()
     inf = (arr.reshape(n, -1) == 0).all(axis=-1)
-    return table, torch.from_numpy(inf).to(device)
+    return (lb.words_to_tensor(arr, device).reshape(n, 2, 2, 8),
+            torch.from_numpy(inf).to(device))
 
 
 def _xyzz_to_affine_host(words: list, fq2: bool):
@@ -132,8 +131,8 @@ def _build_fixed_tables(**named_points) -> dict:
     prove, so it belongs to long-lived provers: the server, library
     handles).  named_points: name -> (group, (table, inf)).  The bytes
     counted are the port's own table's: W * Npad points of 64 B (G1) or
-    128 B (G2), 32-bit limbs in [2, 8] / [2, 2, 8] planes, half of the JAX
-    layout's 128 / 256 B."""
+    128 B (G2), 32-bit limbs, point-major, half of the JAX layout's 128 /
+    256 B."""
     budget = float(os.environ.get("ULTRAGROTH_FIXED_MSM_MB", "0")) * 1e6
     if budget <= 0:
         return {}
@@ -158,10 +157,10 @@ class _ResidentKey:
         if (1 << self.log_n) != zk.domain_size:
             raise ValueError("zkey domain size is not a power of two")
         self.ntt_mode = _ntt.ntt_mode(dev, ntt_mode)
-        self.points_a = g1_section_to_planes(zk.points_a, dev)
-        self.points_b1 = g1_section_to_planes(zk.points_b1, dev)
-        self.points_b2 = g2_section_to_planes(zk.points_b2, dev)
-        self.points_h = g1_section_to_planes(zk.points_h, dev)
+        self.points_a = g1_section_to_table(zk.points_a, dev)
+        self.points_b1 = g1_section_to_table(zk.points_b1, dev)
+        self.points_b2 = g2_section_to_table(zk.points_b2, dev)
+        self.points_h = g1_section_to_table(zk.points_h, dev)
         self.coef_val_mont = lb.words_to_planes(zk.coef_val, dev)
         self.coef_m = _int_tensor(zk.coef_m, dev)
         self.coef_c = _int_tensor(zk.coef_c, dev)
@@ -226,7 +225,7 @@ class TorchGroth16Prover(_ResidentKey):
 
     def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
         self._load_common(zkey, device, ntt_mode)
-        self.points_c = g1_section_to_planes(zkey.points_c, self.device)
+        self.points_c = g1_section_to_table(zkey.points_c, self.device)
         # blinding-term points for the host-side finalization
         self.delta1 = decode_g1(zkey.delta1)
         self.delta2 = decode_g2(zkey.delta2)
@@ -279,8 +278,8 @@ class TorchUltraGrothProver(_ResidentKey):
     def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
         self._load_common(zkey, device, ntt_mode)
         zk, dev = zkey, self.device
-        self.round_points_c = g1_section_to_planes(zk.round_points_c, dev)
-        self.final_points_c = g1_section_to_planes(zk.final_points_c, dev)
+        self.round_points_c = g1_section_to_table(zk.round_points_c, dev)
+        self.final_points_c = g1_section_to_table(zk.final_points_c, dev)
         self.round_indexes = _int_tensor(zk.round_indexes, dev)
         self.final_indexes = _int_tensor(zk.final_indexes, dev)
         self.round_delta1 = decode_g1(zk.round_delta1)

@@ -6,7 +6,9 @@ server): the twin of the JAX package's `runtime.py`.
   no entry point carries on on the CPU unless the caller asked for it.
 - ULTRAGROTH_COMPILE_CACHE=<dir> is where the CUDA kernel libraries are
   built (`compile_cache_dir()`, default `ultragroth_tpu_torch/_build/`);
-  the JAX package's variable of the same name holds its XLA cache.
+  the JAX package's variable of the same name holds its XLA cache.  `off`
+  means no persistent cache, as it does there: the libraries are built
+  into a temporary directory of the process, removed when it exits.
 - ULTRAGROTH_COORDINATOR starts the JAX package's multi-host runtime.  The
   port has no multi-device layer yet, so `configure()` raises when it is
   set rather than prove on one card as if it were not.
@@ -17,7 +19,10 @@ writes nothing outside its checkout and build directory.
 """
 from __future__ import annotations
 
+import atexit
 import os
+import shutil
+import tempfile
 from pathlib import Path
 
 import torch
@@ -26,6 +31,7 @@ PLATFORMS = ("cpu", "cuda")
 DEFAULT_CACHE = Path(__file__).resolve().parent / "_build"
 
 _CONFIGURED = False
+_PROCESS_CACHE: Path | None = None
 
 
 def platform() -> str:
@@ -47,7 +53,19 @@ def default_device() -> torch.device:
 
 def compile_cache_dir() -> Path:
     cache = os.environ.get("ULTRAGROTH_COMPILE_CACHE", "")
+    if cache == "off":
+        return _process_cache()
     return Path(cache) if cache else DEFAULT_CACHE
+
+
+def _process_cache() -> Path:
+    """The process's own build directory (ULTRAGROTH_COMPILE_CACHE=off),
+    made at first use and removed at exit."""
+    global _PROCESS_CACHE
+    if _PROCESS_CACHE is None:
+        _PROCESS_CACHE = Path(tempfile.mkdtemp(prefix="ultragroth_kernels_"))
+        atexit.register(shutil.rmtree, _PROCESS_CACHE, ignore_errors=True)
+    return _PROCESS_CACHE
 
 
 def configure() -> None:
