@@ -34,6 +34,19 @@ exceptional lanes and times it per step (random entries: the
 row, the `exceptional` object of the drain's entry in the kernels line),
 and phase 7 checks one drain launch per MSM on every path.
 
+After the loop, the MSM's bucket reduction is `curve_bucket_reduce` (one
+launch a wide level, one tail launch) and its window combine one
+`curve_window_combine` launch: phase 1 prints their registers, spills and
+blocks per SM, phase 2 holds them equal to their plain versions at the
+2^20 MSMs' shapes (20 windows x 4,096 buckets with the split-32 top
+window, the fixed-base 1 x 65,536, the combine of 20 windows at c = 13)
+and times them beside their bound and their latency floor (dependent
+product rounds x one Fq product's latency, measured by a chain of
+dependent products), phase 4 times one G1 and one G2 2^20 MSM stage by
+stage, and phase 7 checks each path's reduce and combine launches
+against the design's count, `curve_add_where` only in the fixed-base
+window folds.
+
 One line per phase (name, seconds, pass/fail) is printed as each phase
 ends; before the last line come one JSON object with every kernel's
 launches (their sum over the driven paths in `launches`, each path's own
@@ -102,6 +115,12 @@ DRAIN_EXCEPTIONAL_REPLACES = "ultragroth_tpu/ops/kernels.py:77"
 PATH_MSMS = {"groth16_2^20": (4, 1), "groth16_2^20_base": (4, 1),
              "groth16_2^20_fixed": (4, 1), "ultragroth_2^20": (5, 1),
              "ultragroth_2^20_steady": (5, 1), "ultragroth_2^20_api_mma": (5, 1)}
+# each driven path's MSM windows: path -> (G1 c's, G2 c's, fixed-base),
+# filled as the paths run (`msm_windows`)
+PATH_WINDOWS = {}
+FQ_CHAIN_STEPS = 4096      # the Fq product's latency: a chain this long
+# dependent product rounds: a complete add, a doubling, a drain step
+ADD_DEPTH, DBL_DEPTH, STEP_DEPTH = 4, 3, 4
 
 
 class CheckFailed(RuntimeError):
@@ -353,19 +372,18 @@ def _kernel_checks(dev, plain, drain_cache):
     lanes = 20 * 4096          # c = 13 at 2^20: 20 windows x 4096 buckets
     table_n = 1 << LOG_N
     fold_n = lanes // 2        # the first reduction level's width
-    horner_n, horner_c = 20, 13
 
     def err(k, p):
         return int((lb.widen(k) - lb.widen(p)).abs().max())
 
-    def record(name, max_abs, ms, plain_ms, bytes_, imads):
+    def record(name, max_abs, ms, plain_ms, bytes_, imads, **extra):
         b_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
         b_ops = imads / IMAD_PER_S * 1e3
         results[name] = dict(
             max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
             bound_ms=max(b_bytes, b_ops),
             bound_by="bytes" if b_bytes >= b_ops else "operations",
-            library_ms=None)
+            library_ms=None, **extra)
         plain_s = "-" if plain_ms is None else f"{plain_ms:.2f}"
         print(f"  [{K.current_field_mode()}] {name}: err {max_abs} kernel "
               f"{ms:.4f} ms plain {plain_s} ms bound "
@@ -408,6 +426,12 @@ def _kernel_checks(dev, plain, drain_cache):
            plain(lambda: K.fr_cg_ntt_plain(x, tw)),
            2 * 32 * m * cb + tw.numel() * 4, log_m * (m // 2) * cb * MUL_IMAD)
 
+    lat_ms = fq_latency(dev, gen)
+    results["fq_latency"] = dict(ms=lat_ms)
+    print(f"  [{K.current_field_mode()}] Fq product latency (one lane's chain "
+          f"of {FQ_CHAIN_STEPS} dependent products): {lat_ms * 1e3:.4f} us",
+          flush=True)
+
     # -- curve kernels ----------------------------------------------------------
     for group in ("g1", "g2"):
         ops = curve_ops(group)
@@ -415,7 +439,7 @@ def _kernel_checks(dev, plain, drain_cache):
         e = () if group == "g1" else (2,)
         fq_mul = MUL_IMAD * (1 if group == "g1" else 3)   # Fq2: Karatsuba
         fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
-        drain_checks(group, gen, dev, record, err, plain, drain_cache)
+        drain_checks(group, gen, dev, record, err, plain, drain_cache, lat_ms)
         acc = _rand_field((4, *e, 8, lanes), Q, gen, dev)
         acc[..., :16] = ops.inf_xyzz((16,), dev, torch.int32)
         a = acc[..., :fold_n].contiguous()
@@ -439,21 +463,120 @@ def _kernel_checks(dev, plain, drain_cache):
 
         madd_valid_checks(group, gen, dev, record, err, plain)
 
-        h = acc[..., :horner_n].contiguous()
-        k = K.curve_horner_scale(group, h, horner_c)
-        p = K.curve_horner_scale_plain(group, h, horner_c)
-        check(torch.equal(k, p), f"{group}_horner_scale disagrees with its "
-              "plain version")
-        n_dbl = horner_c * horner_n * (horner_n - 1) // 2
-        record(f"{group}_horner_scale", err(k, p),
-               cuda_time_ms(lambda: K.curve_horner_scale(group, h, horner_c), 10),
-               plain(lambda: K.curve_horner_scale_plain(group, h,
-                                                               horner_c)),
-               2 * 4 * kq * 32 * horner_n, n_dbl * (6 * fq_mul + 3 * fq_sqr))
+        reduce_checks(group, gen, dev, record, err, plain, drain_cache, lat_ms)
     return results
 
 
-def drain_checks(group, gen, dev, record, err, plain, cache):
+def fq_latency(dev, gen):
+    """ms of one Fq product in a dependent chain: one warp of lanes, each
+    a chain of FQ_CHAIN_STEPS products (the chain checked against its
+    plain version over 5 steps)."""
+    from ultragroth_tpu_torch.constants import FQ_MODULUS as Q
+    from ultragroth_tpu_torch.ops import kernels as K
+    a = _rand_field((8, 32), Q, gen, dev)
+    b = _rand_field((8, 32), Q, gen, dev)
+    check(torch.equal(K.fq_mul_chain(a, b, 5), K.fq_mul_chain_plain(a, b, 5)),
+          "fq_mul_chain disagrees with its plain version")
+    return cuda_time_ms(lambda: K.fq_mul_chain(a, b, FQ_CHAIN_STEPS),
+                        5) / FQ_CHAIN_STEPS
+
+
+def reduce_work(m, splits):
+    """(complete adds, doublings, dependent product rounds of the longest
+    window) of curve_bucket_reduce over windows of m buckets."""
+    adds = dbls = depth = 0
+    for s in splits:
+        u, arrays, pre, levels = m, 1, s.bit_length() - 1, 0
+        while u > 1:
+            adds += arrays * (u // 2)
+            levels += 1
+            if pre:
+                pre -= 1
+            else:
+                arrays += 1
+            u //= 2
+        adds += arrays - 1
+        dbls += arrays - 1
+        depth = max(depth, levels * ADD_DEPTH
+                    + (arrays - 1) * (ADD_DEPTH + DBL_DEPTH))
+    return adds, dbls, depth
+
+
+def reduce_checks(group, gen, dev, record, err, plain, cache, lat_ms, c=13,
+                  w=20, fixed_log=16):
+    """curve_bucket_reduce against its plain version at the MSM's shapes:
+    the variable-base MSM's 20 windows x 4,096 buckets at c = 13 (the top
+    window in 32 sub-lanes a bucket) and the fixed-base MSM's one window
+    of 65,536 buckets (c = 17), with buckets at infinity, equal buckets,
+    P with -P; curve_window_combine at W = 20, c = 13 (the defaults).  Inputs and plain
+    results made once (`cache`) for both builds.  Each timed beside its
+    bound and its latency floor: dependent product rounds x the measured
+    latency of one Fq product (`fq_latency`)."""
+    from ultragroth_tpu_torch.constants import FQ_MODULUS as Q
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.ops.curve import curve_ops
+    from ultragroth_tpu_torch.ops.msm import _split_factor
+    ops = curve_ops(group)
+    kq = 1 if group == "g1" else 2
+    e = () if group == "g1" else (2,)
+    fq_mul = MUL_IMAD * (1 if group == "g1" else 3)
+    fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
+    add_imads, dbl_imads = 12 * fq_mul + 2 * fq_sqr, 6 * fq_mul + 3 * fq_sqr
+    key = f"{group}_reduce"
+    if key not in cache:
+        shapes = {"": (w, 1 << (c - 1), [_split_factor(i, c) for i in range(w)]),
+                  ":fixed": (1, 1 << fixed_log, [1])}
+        entries = {}
+        for tag, (nw, nb, splits) in shapes.items():
+            acc = _rand_field((4, *e, 8, nw * nb), Q, gen, dev).reshape(
+                4, *e, 8, nw, nb)
+            inf = ops.inf_xyzz((4,), dev, torch.int32)
+            acc[..., 0, :4] = inf                                   # inf + inf
+            acc[..., 0, 5] = acc[..., 0, 4]                         # P + P
+            acc[..., 0, 7] = ops.neg(acc[..., 0, 6:7])[..., 0]      # P + (-P)
+            acc[..., nw - 1, 9] = acc[..., nw - 1, 8]   # sub-lanes P + P
+            acc = acc.contiguous()
+            want = K.curve_bucket_reduce_plain(group, acc, splits)
+            plain_ms = (plain(lambda: K.curve_bucket_reduce_plain(
+                group, acc, splits)) if tag == "" else None)
+            entries[tag] = (acc, splits, want, plain_ms)
+        h = _rand_field((4, *e, 8, w), Q, gen, dev)
+        h[..., 4] = ops.inf_xyzz((1,), dev, torch.int32)[..., 0]
+        h = h.contiguous()
+        cache[key] = (entries, h, K.curve_window_combine_plain(group, h, c),
+                      plain(lambda: K.curve_window_combine_plain(group, h, c)))
+    entries, h, h_want, h_plain_ms = cache[key]
+    for tag, (acc, splits, want, plain_ms) in entries.items():
+        k = K.curve_bucket_reduce(group, acc, splits)
+        check(torch.equal(k, want), f"{group}_bucket_reduce{tag} disagrees "
+              "with its plain version")
+        nw, nb = acc.shape[-2:]
+        adds, dbls, depth = reduce_work(nb, splits)
+        record(f"{group}_bucket_reduce{tag}", err(k, want),
+               cuda_time_ms(lambda: K.curve_bucket_reduce(group, acc, splits),
+                            20), plain_ms, 4 * kq * 32 * nw * (nb + 1),
+               adds * add_imads + dbls * dbl_imads,
+               latency_floor_ms=depth * lat_ms, launches_a_call=
+               K.bucket_reduce_launches(nb), adds=adds, doublings=dbls,
+               product_depth=depth)
+    k = K.curve_window_combine(group, h, c)
+    check(torch.equal(k, h_want), f"{group}_window_combine disagrees with its "
+          "plain version")
+    # the fold pads the W sums to m with infinity: an add with infinity
+    # selects its other operand, so the function needs W - 1 adds; the
+    # latency floor keeps the log2(m) fold rounds
+    m = 1 << max(1, (w - 1).bit_length())
+    dbls = c * w * (w - 1) // 2
+    depth = c * (w - 1) * DBL_DEPTH + (m.bit_length() - 1) * ADD_DEPTH
+    record(f"{group}_window_combine", err(k, h_want),
+           cuda_time_ms(lambda: K.curve_window_combine(group, h, c), 20),
+           h_plain_ms, 4 * kq * 32 * (w + 1),
+           (w - 1) * add_imads + dbls * dbl_imads,
+           latency_floor_ms=depth * lat_ms, doublings=dbls, adds=w - 1,
+           product_depth=depth)
+
+
+def drain_checks(group, gen, dev, record, err, plain, cache, lat_ms):
     """curve_bucket_drain against its plain version at the MSM's 81,920
     lanes (c = 13 at 2^20) over a 2^20-point point-major table: 8 steps
     from given accumulators and steps [2, 7) from infinity, with lanes at
@@ -543,12 +666,17 @@ def drain_checks(group, gen, dev, record, err, plain, cache):
     madd = lanes * (8 * fq_mul + 2 * fq_sqr)      # 10 Fq products a lane
     # an exceptional step runs the fast madd and then the complete one
     # (+Q / -Q from infinity takes no doubling): 20 products a lane
-    for name, ms, plain_ms, acc_io, imads in (
-            (f"{group}_bucket_drain", ms_fast, c["plain_fast"], 2, madd),
+    # a lane's serial chain (the skewed lanes of the UltraGroth MSMs): a
+    # fast step is STEP_DEPTH dependent product rounds, an exceptional one
+    # the fast step's and the complete add's
+    for name, ms, plain_ms, acc_io, imads, depth in (
+            (f"{group}_bucket_drain", ms_fast, c["plain_fast"], 2, madd,
+             STEP_DEPTH),
             (f"{group}_bucket_drain:exceptional", ms_exc, c["plain_exc"], 1,
-             2 * madd)):
+             2 * madd, STEP_DEPTH + ADD_DEPTH)):
         record(name, max_abs, ms, None if plain_ms is None else plain_ms / 2,
-               per_step + (acc_io * acc_bytes + 12 * lanes) / t_steps, imads)
+               per_step + (acc_io * acc_bytes + 12 * lanes) / t_steps, imads,
+               latency_floor_ms_a_step=depth * lat_ms)
 
 
 def madd_valid_checks(group, gen, dev, record, err, plain):
@@ -602,6 +730,77 @@ def madd_valid_checks(group, gen, dev, record, err, plain):
                group, acc_big, table, tinf, sc_big, 1)),
            2 * 4 * kq * 32 * big + 4 * big + 2 * kq * 32 * 8192 + 8192,
            needed * (8 * fq_mul + 2 * fq_sqr))
+
+
+@torch.inference_mode()
+def _msm_stages(group, table, inf, scalars, c):
+    """`ops/msm.py:msm` stage by stage (`msm_stages`, which `msm` itself
+    runs), the device synchronised after each: {stage: ms between CUDA
+    events}, and the MSM's output."""
+    from ultragroth_tpu_torch.ops import msm as M
+    events = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        torch.cuda.synchronize()
+        events.append(ev)
+
+    mark()
+    names = []
+    for name, out in M.msm_stages(group, table, inf, scalars, c):
+        mark()
+        names.append(name)
+    return ({st: events[i].elapsed_time(events[i + 1])
+             for i, st in enumerate(names)}, out)
+
+
+def msm_stage_split(dev, prover, witness, reps=3):
+    """The 2^20 prove's G1 MSM of A and G2 MSM of B2 by stage (the last of
+    `reps` runs), each output equal to `msm`'s."""
+    from ultragroth_tpu_torch.ops import limbs as lb
+    from ultragroth_tpu_torch.ops import msm as M
+    w_std = lb.words_to_planes(witness, dev)
+    split = {}
+    for group, (table, inf) in (("g1", prover.points_a),
+                                ("g2", prover.points_b2)):
+        for _ in range(reps):
+            ms, out = _msm_stages(group, table, inf, w_std, prover.c_vars)
+        check(torch.equal(out, M.msm(group, table, inf, w_std, prover.c_vars)),
+              f"the {group} MSM by stage differs from msm")
+        split[group] = ms
+        print(f"  {group} MSM 2^{LOG_N} by stage (ms, c = {prover.c_vars}): "
+              f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}; sum "
+              f"{sum(ms.values()):.3f}", flush=True)
+    return split
+
+
+def msm_windows(prover):
+    """(G1 c's, G2 c's, fixed-base) of the MSMs of one prove."""
+    if prover.fixed:
+        f = prover.fixed
+        return [f[k][2] for k in ("a", "b1", "c", "h")], [f["b2"][2]], True
+    g1 = [prover.c_vars] * 3 + [prover.c_h]
+    if hasattr(prover, "c_round"):       # UltraGroth: round commitment, final C
+        g1 = [prover.c_round, prover.c_vars, prover.c_vars, prover.c_final,
+              prover.c_h]
+    return g1, [prover.c_vars], False
+
+
+def expected_launches(windows):
+    """{kernel: launches} of the reduction and combine kernels (and the
+    fixed-base window folds' add_where) for one path's MSMs."""
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.ops.msm import fixed_n_windows
+    out = {}
+    for g, cs in (("g1", windows[0]), ("g2", windows[1])):
+        out[f"{g}_bucket_reduce"] = sum(K.bucket_reduce_launches(1 << (c - 1))
+                                        for c in cs)
+        out[f"{g}_window_combine"] = 0 if windows[2] else len(cs)
+        out[f"{g}_add_where"] = sum(
+            max(1, (fixed_n_windows(c) - 1).bit_length())
+            for c in cs) if windows[2] else 0
+    return out
 
 
 @contextlib.contextmanager
@@ -718,6 +917,7 @@ def ultragroth_full_width(dev, drive):
         return st, zk, prover, proof, w_final
 
     st, zk, prover, proof, w_final = drive("ultragroth_2^20", setup_and_prove)
+    PATH_WINDOWS["ultragroth_2^20"] = msm_windows(prover)
 
     t0 = time.perf_counter()
     vk = ug.UltraGrothVerificationKey.from_json_dict(st.vk_json)
@@ -742,6 +942,7 @@ def ultragroth_full_width(dev, drive):
 
     t0 = time.perf_counter()
     drive("ultragroth_2^20_steady", lambda: prover.prove(wt.values, wt))
+    PATH_WINDOWS["ultragroth_2^20_steady"] = msm_windows(prover)
     print(f"  steady prove {time.perf_counter() - t0:.3f} s "
           f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
     return st, circ, wt, prover
@@ -836,6 +1037,7 @@ def fixed_base_prove(dev, drive, zk, witness, expect, proof_json):
     t0 = time.perf_counter()
     proof = drive("groth16_2^20_fixed", lambda: prover.prove(
         witness, r=R_BLIND, s=S_BLIND))
+    PATH_WINDOWS["groth16_2^20_fixed"] = msm_windows(prover)
     print(f"  first prove {time.perf_counter() - t0:.3f} s last_phase_ms "
           f"{json.dumps(prover.last_phase_ms)}", flush=True)
     check(proof.to_json() == proof_json,
@@ -879,6 +1081,7 @@ def api_mma_prove(drive, mma_paths, st, uwtns, wt, default_prover):
     proof_json, public_json = drive("ultragroth_2^20_api_mma",
                                     lambda: handle.prove(uwtns, **pins))
     mma_paths["ultragroth_2^20_api_mma"] = K.launch_counts("mma")
+    PATH_WINDOWS["ultragroth_2^20_api_mma"] = msm_windows(handle._prover)
     print(f"  first prove (mma) {time.perf_counter() - t0:.3f} s "
           f"last_phase_ms {json.dumps(handle._prover.last_phase_ms)}",
           flush=True)
@@ -1076,6 +1279,13 @@ def main() -> int:
                 print(f"  [{mode}] {g}_bucket_drain: {regs} registers, "
                       f"{local} B local memory (stack and spills) a thread, "
                       f"{blocks} blocks of 128 threads per SM", flush=True)
+            # the reduction's tail at the fixed-base MSM's 13 arrays of 16
+            # lanes (its largest), the combine at 20 windows
+            for (g, name), (regs, local, blocks) in _build.reduce_info(
+                    mode, K.REDUCE_TAIL_WIDTH, 13, 20).items():
+                print(f"  [{mode}] {g}_{name}: {regs} registers, {local} B "
+                      f"local memory (stack and spills) a thread, {blocks} "
+                      "blocks per SM", flush=True)
 
     with phase("2_kernels_vs_plain"):
         drain_cache = {}
@@ -1083,9 +1293,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         metrics_mma = kernel_checks(dev, "mma", drain_cache)
         del drain_cache
-        check(all(m["max_abs_err"] == 0 for m in metrics_mma.values()),
+        checked = [k for k in metrics_mma if k != "fq_latency"]
+        check(all(metrics_mma[k]["max_abs_err"] == 0 for k in checked),
               "an MMA-built kernel differs from its plain version")
-        print(f"  all {len(metrics_mma)} kernel instances of the mma build "
+        print(f"  all {len(checked)} kernel instances of the mma build "
               "equal their plain versions", flush=True)
         mma_row = mma_field_checks(dev, metrics_mma["fr_mont_mul"]["ms"])
         torch.cuda.empty_cache()
@@ -1124,6 +1335,7 @@ def main() -> int:
               f"{prover.ntt_mode}, not fast")
         t0 = time.perf_counter()
         drive("groth16_2^20", lambda: prover.prove(witness))
+        PATH_WINDOWS["groth16_2^20"] = msm_windows(prover)
         first_s = time.perf_counter() - t0
         print(f"  first prove {first_s:.3f} s", flush=True)
         print(f"  last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
@@ -1169,9 +1381,11 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"  steady prove {time.perf_counter() - t0:.3f} s "
               f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
+        msm_split = msm_stage_split(dev, prover, witness)
         base_prover = TorchGroth16Prover(zk, ntt_mode="base")
         proof_base = drive("groth16_2^20_base", lambda: base_prover.prove(
             witness, r=R_BLIND, s=S_BLIND))
+        PATH_WINDOWS["groth16_2^20_base"] = msm_windows(base_prover)
         print(f"  base-mode prove last_phase_ms "
               f"{json.dumps(base_prover.last_phase_ms)}", flush=True)
         check(proof_base.to_json() == proof_fast.to_json(),
@@ -1207,26 +1421,35 @@ def main() -> int:
 
     with phase("7_kernel_launches"):
         total = {k: sum(p[k] for p in paths.values()) for k in K.KERNELS}
+        fixed_only = ("g1_add_where", "g2_add_where")
+        var_only = ("g1_window_combine", "g2_window_combine")
         prove_kernels = [k for k in K.KERNELS if k not in (
-            "fr_butterfly", "g1_madd_valid", "g2_madd_valid")]
+            "fr_butterfly", "g1_madd_valid", "g2_madd_valid", *fixed_only)]
         need = {"groth16_2^20": prove_kernels,
                 "groth16_2^20_base": ["fr_butterfly"],
                 "groth16_2^20_fixed": [k for k in prove_kernels
-                                       if "horner" not in k],
+                                       if k not in var_only] + list(fixed_only),
                 "ultragroth_2^20": [k for k in K.KERNELS
-                                    if k != "fr_butterfly"],
+                                    if k not in ("fr_butterfly", *fixed_only)],
                 "ultragroth_2^20_api_mma": prove_kernels}
         for name, kernels in need.items():
             missing = [k for k in kernels if paths[name][k] == 0]
             check(not missing, f"kernels never launched on {name}: {missing}")
-        check(not any(paths["groth16_2^20_fixed"][k] for k in
-                      ("g1_horner_scale", "g2_horner_scale")),
-              "the fixed-base MSMs ran a Horner combine")
+        check(not any("horner" in k for k in K.KERNELS),
+              "a Horner kernel is still registered")
         for name, msms in PATH_MSMS.items():
             drains = (paths[name]["g1_bucket_drain"],
                       paths[name]["g2_bucket_drain"])
             check(drains == msms, f"{name}: (G1, G2) bucket drain launches "
                   f"{drains}, not one per MSM {msms}")
+            # the reduction and the combine: the design's launches for the
+            # path's MSMs; add_where only in the fixed-base window folds
+            want = expected_launches(PATH_WINDOWS[name])
+            got = {k: paths[name][k] for k in want}
+            check(got == want, f"{name}: reduction launches {got}, the design "
+                  f"gives {want}")
+            print(f"  {name}: launches {json.dumps(got)} == the design's",
+                  flush=True)
         api_mma = mma_paths["ultragroth_2^20_api_mma"]
         missing = [k for k in prove_kernels if api_mma[k] == 0]
         check(not missing, f"MMA builds never launched on the mma path: "
@@ -1248,6 +1471,15 @@ def main() -> int:
                 row["exceptional"] = {
                     "replaces": DRAIN_EXCEPTIONAL_REPLACES, **metrics[exc],
                     "mma_ms": metrics_mma[exc]["ms"]}
+            if name.endswith("_bucket_reduce"):
+                # the fixed-base MSM's reduction: one window of 2^16
+                fx = f"{name}:fixed"
+                row["fixed_base"] = {**metrics[fx],
+                                     "mma_ms": metrics_mma[fx]["ms"]}
+            if name.endswith(("_bucket_reduce", "_window_combine")):
+                row["mma_latency_floor_ms"] = (
+                    metrics_mma[name]["product_depth"]
+                    * metrics_mma["fq_latency"]["ms"])
             rows.append({**row, **metrics[name],
                          "mma_ms": metrics_mma[name]["ms"]})
         mma_launches = {p: sum(c.values()) for p, c in mma_paths.items()}
@@ -1258,7 +1490,10 @@ def main() -> int:
                      "launches_by_path": mma_launches,
                      "launches_by_kernel": api_mma, **mma_row})
 
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "fq_latency_ms": {
+        "cios": metrics["fq_latency"]["ms"],
+        "mma": metrics_mma["fq_latency"]["ms"]},
+        "msm_stage_ms": msm_split}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,7 +65,8 @@ def _points(group, n):
 def test_curve_kernels_match_plain_on_card(dev, group):
     """The bucket drain in both builds (6 steps over a 512-point table with
     P + P, P + (-P), +Q / -Q alternating and lanes past their counts, from
-    given accumulators and from infinity), add_where and horner."""
+    given accumulators and from infinity), add_where and the window
+    combine (whose doublings are curve_horner_scale's)."""
     ops = curve_ops(group)
     planes = _points(group, 2 * N)
     table = table_from_planes(planes)
@@ -101,8 +102,48 @@ def test_curve_kernels_match_plain_on_card(dev, group):
     k = K.curve_add_where(group, _cu(acc, dev), _cu(b, dev), ok.to(dev))
     assert torch.equal(lb.widen(k.cpu()), K.curve_add_where_plain(group, acc, b, ok))
     h = acc[..., :20].contiguous()
-    k = K.curve_horner_scale(group, _cu(h, dev), 13)
-    assert torch.equal(lb.widen(k.cpu()), K.curve_horner_scale_plain(group, h, 13))
+    k = K.curve_window_combine(group, _cu(h, dev), 13)
+    assert torch.equal(lb.widen(k.cpu()), K.curve_window_combine_plain(group, h, 13))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_reduce_and_combine_match_plain_on_card(dev, group):
+    """curve_bucket_reduce over 3 windows of 64 buckets (two wide levels,
+    then the tail; a split group of 8 sub-lanes; a bucket at infinity,
+    equal buckets, P with -P) and curve_window_combine, in both builds."""
+    ops = curve_ops(group)
+    planes = _points(group, 64)
+    base = ops.affine_to_xyzz(planes[0], planes[1],
+                              torch.zeros(64, dtype=torch.bool))
+    acc = torch.cat([base, ops.dbl(base),
+                     ops.add_unified(base, torch.roll(base, 1, -1))], -1)
+    acc = acc.reshape(acc.shape[:-1] + (3, 64)).clone()
+    acc[..., 0, 0] = ops.inf_xyzz((1,))[..., 0]
+    acc[..., 0, 3] = acc[..., 0, 2]
+    acc[..., 1, 5] = ops.neg(acc[..., 1, 4:5])[..., 0]
+    splits = [1, 1, 8]
+    want = K.curve_bucket_reduce_plain(group, acc, splits)
+    for mode in K.FIELD_MODES:
+        with K.field_mode(mode):
+            K.reset_launch_counts()
+            k = K.curve_bucket_reduce(group, _cu(acc, dev), splits)
+            assert torch.equal(lb.widen(k.cpu()), want), mode
+            assert K.launch_counts(mode)[f"{group}_bucket_reduce"] == \
+                K.bucket_reduce_launches(64) == 3
+            k = K.curve_window_combine(group, _cu(want, dev), 13)
+            assert torch.equal(lb.widen(k.cpu()),
+                               K.curve_window_combine_plain(group, want, 13)), mode
+
+
+def test_fq_chain_matches_plain_on_card(dev):
+    g = torch.Generator().manual_seed(66)
+    a = torch.randint(0, 1 << 32, (8, 64), generator=g, dtype=torch.int64)
+    a[7] %= 0x30644E72
+    b = torch.roll(a, 1, -1)
+    for mode in K.FIELD_MODES:
+        with K.field_mode(mode):
+            k = K.fq_mul_chain(_cu(a, dev), _cu(b, dev), 7)
+            assert torch.equal(lb.widen(k.cpu()), K.fq_mul_chain_plain(a, b, 7)), mode
 
 
 def test_fr_kernels_match_plain_on_card(dev):
@@ -169,8 +210,10 @@ def test_small_prove_on_card_matches_cpu(dev):
     K.reset_launch_counts()
     on_card = TorchGroth16Prover(zk).prove(w, r=11, s=22)
     # the card's default NTT mode is fast: no per-stage butterflies; the
-    # fixed-base madd belongs to the device set-up
-    idle = {"fr_butterfly", "g1_madd_valid", "g2_madd_valid"}
+    # fixed-base madd belongs to the device set-up; add_where to the
+    # fixed-base tables (the reduction has its own kernel)
+    idle = {"fr_butterfly", "g1_madd_valid", "g2_madd_valid", "g1_add_where",
+            "g2_add_where"}
     assert {k for k, v in K.launch_counts().items() if v == 0} == idle
     on_cpu = TorchGroth16Prover(zk, device="cpu").prove(w, r=11, s=22)
     assert on_card.to_json() == on_cpu.to_json()

@@ -349,7 +349,8 @@ def _drain_body(host_lib, group, case, t_from, t_to, acc):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_curve_lane_bodies_match_plain(host_lib, group):
     """The bucket drain from infinity over every step and from given
-    accumulators over a window of steps; add_where; horner."""
+    accumulators over a window of steps; add_where; the window combine
+    (whose doublings are curve_horner_scale's)."""
     ops = curve_ops(group)
     case = _drain_case(group, alt=5, repeat=3, long=40)
     _drain_body(host_lib, group, case, 0, K.DRAIN_ALL, None)
@@ -371,10 +372,12 @@ def test_curve_lane_bodies_match_plain(host_lib, group):
     np.testing.assert_array_equal(
         out, A.u32(K.curve_add_where_plain(group, acc, b, ok)))
 
-    pts = A.u32(acc[..., :5].contiguous())
-    getattr(host_lib, f"ugh_{group}_horner")(A.p(pts), i64(5), ctypes.c_int(3))
-    np.testing.assert_array_equal(pts, A.u32(K.curve_horner_scale_plain(
-        group, acc[..., :5].contiguous(), 3)))
+    pts = acc[..., :5].contiguous()
+    out = np.zeros(acc.shape[:-1] + (1,), np.uint32)
+    getattr(host_lib, f"ugh_{group}_window_combine")(
+        A.p(A.u32(pts)), i64(5), ctypes.c_int(3), A.p(out))
+    np.testing.assert_array_equal(out[..., 0], A.u32(
+        K.curve_window_combine_plain(group, pts, 3)))
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -427,8 +430,9 @@ def test_fr_lane_bodies_match_plain(host_lib):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
-    with pytest.raises(ValueError):      # horner: one block holds all lanes
-        K.curve_horner_scale("g1", torch.zeros(4, 8, 129, dtype=torch.int64), 2)
+    with pytest.raises(ValueError):      # the combine: one block, <= 128 windows
+        K.curve_window_combine("g1", torch.zeros(4, 8, 129, dtype=torch.int64),
+                               2)
     with pytest.raises(ValueError):      # a stage must tile the array
         K.fr_butterfly(torch.zeros(8, 12, dtype=torch.int64),
                        torch.zeros(8, 8, dtype=torch.int64))

@@ -15,9 +15,9 @@
 // selected (as the JAX package's add_unified / madd_unified do), the bucket
 // drain runs every lane of a warp to the warp's largest count with masked
 // updates and takes the complete add when any lane of the warp needs it,
-// Horner runs the same number of masked doublings on every lane, and a lane
-// past the end (`live` false) computes a clamped lane's values and stores
-// nothing.  The CIOS build keeps its branches.
+// and a lane past the end (`live` false) computes a clamped lane's values
+// and stores nothing.  The CIOS build keeps its branches.  The reduction
+// and the window combine after the bucket loop are in reduce.cuh.
 #pragma once
 #include "field.cuh"
 
@@ -306,25 +306,6 @@ UG_HD void lane_add_where(const uint32_t* a, const uint32_t* b, const uint8_t* o
   if (ok == nullptr || ok[i]) pa = add_unified<F>(pa, load_xyzz<F>(b, n, i));
 #endif
   if (live) store_xyzz<F>(out, n, i, pa);
-}
-
-// curve_horner_scale: lane w doubled c*w times (in place).  The MMA build
-// runs c*(n-1) doublings on every lane and keeps the first c*w
-// (ultragroth_tpu/ops/kernels.py:133-169, the masked loop of the TPU kernel).
-template <class F>
-UG_HD void lane_horner(uint32_t* pts, int64_t n, int c, int64_t i, bool live = true) {
-  xyzz<F> p = load_xyzz<F>(pts, n, i);
-  const int64_t k = (int64_t)c * i;
-#if UG_MMA_FIELD
-  const int64_t steps = (int64_t)c * (n - 1);
-  for (int64_t s = 0; s < steps; s++) {
-    const xyzz<F> d = dbl<F>(p);
-    if (s < k) p = d;
-  }
-#else
-  for (int64_t s = 0; s < k; s++) p = dbl<F>(p);
-#endif
-  if (live) store_xyzz<F>(pts, n, i, p);
 }
 
 // fr_butterfly, one DIT stage in place over a [8, n] array: pair

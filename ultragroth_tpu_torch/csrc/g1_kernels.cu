@@ -21,3 +21,22 @@ extern "C" int UG_SYM(fq_mont_mul)(const void* a, const void* b, void* out,
       (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
+
+// The latency probe (lane_fq_chain, no TPU kernel): each lane a chain of
+// `steps` dependent Fq products; one warp's time over steps is the latency
+// of one product, the floor of the reduction's and the combine's chains.
+__global__ void UG_SYM(fq_chain_k)(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                                   int64_t n, int32_t steps) {
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  UG_LANE_BEGIN(ug::FqParams, i, n);
+  ug::lane_fq_chain(a, b, out, n, steps, i, live);
+}
+
+extern "C" int UG_SYM(fq_chain)(const void* a, const void* b, void* out, int64_t n,
+                                int32_t steps, void* stream) {
+  int smem;
+  if (int rc = ug_kernel_smem(UG_SYM(fq_chain_k), 32, &smem)) return rc;
+  UG_SYM(fq_chain_k)<<<ug_grid(n, 32), 32, smem, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, steps);
+  return (int)cudaGetLastError();
+}

@@ -5,12 +5,77 @@
 // Built a second time with -DUG_MMA_FIELD=1, it runs the MMA build's lane
 // bodies (branch-free) over mma_field.cuh's product with plain loops in
 // place of the tensor-core tile products.
-#include "curve.cuh"
+#include <vector>
+
+#include "reduce.cuh"
+
+// The reduction's tail and the window combine: each block's program
+// (reduce.cuh) with every phase run for each thread index in turn, the
+// kernels' blocks one after another, their launch shapes.
+template <class F>
+int host_reduce_tail(const void* state, int64_t state_n, const void* groups, int ngroups,
+                     int64_t nblocks, int u, int arrays_max, void* out, int64_t out_n) {
+  using E = typename F::E;
+  const int threads = ug::kTailThreads;
+  std::vector<ug::TeamSlots<E>> teams(threads / ug::Split<E>::kTeam);
+  std::vector<ug::Pt<E>> buf(arrays_max * u + (arrays_max + 1) * (u / 2) + 1);
+  for (int64_t blk = 0; blk < nblocks; blk++) {
+    int64_t b = blk;
+    const int64_t* d = ug::tail_group((const int64_t*)groups, ngroups, b);
+    ug::HostBlock run{threads};
+    ug::reduce_tail_body<F>(run, threads, teams.data(), buf.data(),
+                            buf.data() + arrays_max * u, (const uint32_t*)state, state_n,
+                            d[0] + b * u, d[1] * u, (int)d[3], u, (int)d[4],
+                            (uint32_t*)out, out_n, d[2] + b);
+  }
+  return 0;
+}
+
+// A wide level of the reduction: thread by thread (G1), or by teams, the
+// kernel's blocks of kTailThreads threads in turn (G2).
+template <class F, bool kTeamStep>
+int host_reduce_step(const void* in, int64_t in_n, void* out, int64_t out_n,
+                     const void* segs, int nseg, int64_t n) {
+  using E = typename F::E;
+  if (!kTeamStep) {
+    for (int64_t i = 0; i < n; i++)
+      ug::lane_reduce_step<F>((const uint32_t*)in, in_n, (uint32_t*)out, out_n,
+                              (const int64_t*)segs, nseg, i, true);
+    return 0;
+  }
+  const int threads = ug::kTailThreads, adds = threads / ug::Split<E>::kTeam;
+  std::vector<ug::TeamSlots<E>> teams(adds);
+  for (int64_t first = 0; first < n; first += adds) {
+    ug::HostBlock run{threads};
+    ug::reduce_step_team_body<F>(run, teams.data(), (const uint32_t*)in, in_n,
+                                 (uint32_t*)out, out_n, (const int64_t*)segs, nseg, n,
+                                 first);
+  }
+  return 0;
+}
+
+template <class F>
+int host_window_combine(const void* pts, int64_t W, int c, void* out) {
+  using E = typename F::E;
+  const int m = ug::combine_width(W);
+  const int64_t nblk = ug::combine_blocks<E>(W);
+  std::vector<ug::TeamSlots<E>> teams(32 / ug::Split<E>::kTeam);
+  std::vector<ug::Pt<E>> buf(m + m / 2);
+  std::vector<uint32_t> scaled(4 * (sizeof(E) / 4) * m);
+  int counter = 0, flag = 0;
+  for (int64_t blk = 0; blk < nblk; blk++) {
+    ug::HostBlock run{32};
+    ug::combine_body<F>(run, 32, teams.data(), buf.data(), buf.data() + m,
+                        (const uint32_t*)pts, W, c, blk, nblk, scaled.data(), &counter,
+                        &flag, (uint32_t*)out);
+  }
+  return counter;     // 0: the last block reset it
+}
 
 // The bucket drain: lane by lane, each loading its points at the step that
 // adds them (DirectFetch).  The MMA build's lanes run to the largest end of
 // their group of 32 (the warp of the kernel), as the kernel's do.
-#define UG_HOST_CURVE(G, F)                                                   \
+#define UG_HOST_CURVE(G, F, TEAM_STEP)                                        \
   extern "C" int ugh_##G##_bucket_drain(const void* acc, void* out,           \
       const void* table, const void* orders, const void* gidx,                \
       const void* stride, const void* cnt, int32_t t_from, int32_t t_to,      \
@@ -37,10 +102,20 @@
           (const uint8_t*)ok, (uint32_t*)out, n, i);                          \
     return 0;                                                                 \
   }                                                                           \
-  extern "C" int ugh_##G##_horner(void* pts, int64_t n, int c) {              \
-    for (int64_t i = 0; i < n; i++)                                           \
-      ug::lane_horner<F>((uint32_t*)pts, n, c, i);                            \
-    return 0;                                                                 \
+  extern "C" int ugh_##G##_reduce_step(const void* in, int64_t in_n, void* out,  \
+      int64_t out_n, const void* segs, int nseg, int64_t n) {                 \
+    return host_reduce_step<F, TEAM_STEP>(in, in_n, out, out_n, segs, nseg,  \
+                                          n);                                 \
+  }                                                                           \
+  extern "C" int ugh_##G##_reduce_tail(const void* state, int64_t state_n,    \
+      const void* groups, int ngroups, int64_t nblocks, int u,                \
+      int arrays_max, void* out, int64_t out_n) {                             \
+    return host_reduce_tail<F>(state, state_n, groups, ngroups, nblocks, u,   \
+                               arrays_max, out, out_n);                       \
+  }                                                                           \
+  extern "C" int ugh_##G##_window_combine(const void* pts, int64_t W, int c,  \
+                                          void* out) {                        \
+    return host_window_combine<F>(pts, W, c, out);                            \
   }
 
 #define UG_HOST_MADD_VALID(G, F)                                              \
@@ -56,8 +131,8 @@
 
 UG_HOST_MADD_VALID(g1, ug::Fq)
 UG_HOST_MADD_VALID(g2, ug::Fq2)
-UG_HOST_CURVE(g1, ug::Fq)
-UG_HOST_CURVE(g2, ug::Fq2)
+UG_HOST_CURVE(g1, ug::Fq, false)
+UG_HOST_CURVE(g2, ug::Fq2, true)
 
 extern "C" int ugh_fr_mont_mul(const void* a, const void* b, void* out,
                                int64_t n, int64_t b_n) {
@@ -104,6 +179,13 @@ extern "C" int ugh_mma_mont_mul(int field, const void* a, const void* b, void* o
               field == 0 ? ug::mont_mul_mma_ref<ug::FrParams>(x, y)
                          : ug::mont_mul_mma_ref<ug::FqParams>(x, y));
   }
+  return 0;
+}
+
+extern "C" int ugh_fq_chain(const void* a, const void* b, void* out, int64_t n,
+                            int32_t steps) {
+  for (int64_t i = 0; i < n; i++)
+    ug::lane_fq_chain((const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n, steps, i);
   return 0;
 }
 

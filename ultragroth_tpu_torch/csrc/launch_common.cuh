@@ -65,13 +65,17 @@ __device__ __forceinline__ void ug_cp_async_wait_all() {
 extern __shared__ __align__(16) unsigned char ug_dyn_smem_raw[];
 #endif
 
-__device__ __forceinline__ uint4* ug_drain_slots() {
+// A kernel's own dynamic shared memory (16-byte aligned): after the MMA
+// build's tiles, or all of it in the CIOS build.
+__device__ __forceinline__ unsigned char* ug_own_smem() {
 #if UG_MMA_FIELD
-  return (uint4*)(ug::mma_smem() + ug::kMmaConstBytes + (blockDim.x >> 5) * ug::kMmaWarpBytes);
+  return ug::mma_smem() + ug::kMmaConstBytes + (blockDim.x >> 5) * ug::kMmaWarpBytes;
 #else
-  return (uint4*)ug_dyn_smem_raw;
+  return ug_dyn_smem_raw;
 #endif
 }
+
+__device__ __forceinline__ uint4* ug_drain_slots() { return (uint4*)ug_own_smem(); }
 
 template <class F>
 constexpr int ug_drain_slot_bytes(int threads) {

@@ -130,6 +130,7 @@ _SIGNATURES = {
     "ug_fr_butterfly": [_P, _P, _I64, _I64, _P],
     "ug_fr_cg_ntt": [_P, _P, _P, ctypes.c_int, _I64, _P],
     "ug_fq_mont_mul": [_P, _P, _P, _I64, _P],
+    "ug_fq_chain": [_P, _P, _P, _I64, _I32, _P],
 }
 for _g in ("g1", "g2"):
     _SIGNATURES.update({
@@ -139,7 +140,12 @@ for _g in ("g1", "g2"):
         f"ug_{_g}_madd_valid": [_P, _P, _P, _P, _I64, _P, ctypes.c_int,
                                 _I64, _P],
         f"ug_{_g}_add_where": [_P, _P, _P, _P, _I64, _P],
-        f"ug_{_g}_horner": [_P, _I64, ctypes.c_int, _P],
+        f"ug_{_g}_reduce_step": [_P, _I64, _P, _I64, _P, ctypes.c_int, _I64,
+                                 _P],
+        f"ug_{_g}_reduce_tail": [_P, _I64, _P, ctypes.c_int, _I64,
+                                 ctypes.c_int, ctypes.c_int, _P, _I64, _P],
+        f"ug_{_g}_window_combine": [_P, _I64, ctypes.c_int, _P, _P, _P, _P],
+        f"ug_{_g}_reduce_info": [ctypes.c_int] * 3 + [_P, _P, _P],
     })
 
 
@@ -154,6 +160,29 @@ def drain_info(mode: str = "cios") -> dict:
         if rc != 0:
             raise RuntimeError(f"{g}_bucket_drain ({mode}): CUDA error {rc}")
         out[g] = tuple(v.value for v in vals)
+    return out
+
+
+REDUCE_KINDS = ("reduce_step", "reduce_tail", "window_combine")
+
+
+def reduce_info(mode: str, tail_u: int, tail_arrays: int,
+                windows: int) -> dict:
+    """{(group, kernel): (registers, local bytes a thread, resident blocks
+    per SM)} of the `mode` build's reduction kernels (REDUCE_KINDS), the
+    tail at width tail_u with tail_arrays arrays, the combine of `windows`
+    windows."""
+    fns = load(mode)
+    out = {}
+    for g in ("g1", "g2"):
+        for kind, name in enumerate(REDUCE_KINDS):
+            a, b = ((0, 0), (tail_u, tail_arrays), (windows, 0))[kind]
+            vals = [ctypes.c_int(0) for _ in range(3)]
+            rc = fns[f"ug_{g}_reduce_info"](kind, a, b,
+                                             *(ctypes.byref(v) for v in vals))
+            if rc != 0:
+                raise RuntimeError(f"{g}_{name} ({mode}): CUDA error {rc}")
+            out[(g, name)] = tuple(v.value for v in vals)
     return out
 
 

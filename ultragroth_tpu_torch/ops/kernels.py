@@ -60,8 +60,10 @@ for _g in ("g1", "g2"):
                              "ultragroth_tpu/ops/kernels.py:64"),
         f"{_g}_add_where": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                             "ultragroth_tpu/ops/kernels.py:171"),
-        f"{_g}_horner_scale": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
-                               "ultragroth_tpu/ops/kernels.py:133"),
+        f"{_g}_bucket_reduce": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                                "ultragroth_tpu/ops/kernels.py:171"),
+        f"{_g}_window_combine": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                                 "ultragroth_tpu/ops/kernels.py:133"),
     })
 
 MMA_ROW = ("mont_mul_mma", "ultragroth_tpu_torch/csrc/mma_field.cuh",
@@ -452,7 +454,157 @@ def curve_add_where(group: str, a, b, ok=None):
     return out
 
 
+# -- the MSM's bucket reduction and window combine -------------------------
+
+REDUCE_TAIL_WIDTH = 16
+"""The width at which `curve_bucket_reduce` hands a window to its tail
+block (csrc/reduce.cuh): wider levels are one launch each over every
+window, the rest of a window's levels and its Horner run in one block."""
+
+
+def reduce_plan(m: int, splits):
+    """The launches of `curve_bucket_reduce` over W = len(splits) windows
+    of m buckets.  Windows with equal consecutive splits form a group
+    (w0, wg, split), whose state is `arrays` arrays [array][window][lane]
+    of the current width: the current sums, then the banks.
+
+    Returns (steps, tail, u, capacity): steps[k] the segments (in_off,
+    out_off, n, neg_off, n_neg) of wide level k (lanes of the step's
+    input and output planes; the first step reads the accumulators
+    [W, m], the others a scratch of `capacity` lanes); tail the groups
+    (state lane, windows, first window, arrays, pre-folds left) of the
+    tail launch at width u."""
+    runs = []
+    for w, s in enumerate(splits):
+        if runs and runs[-1][2] == s:
+            runs[-1][1] += 1
+        else:
+            runs.append([w, 1, s])
+    u_tail = min(m, REDUCE_TAIL_WIDTH)
+    groups = [dict(off=w0 * m, wg=wg, arrays=1, pre=s.bit_length() - 1)
+              for w0, wg, s in runs]
+    steps, cap, u = [], 0, m
+    while u > u_tail:
+        segs, off = [], 0
+        for g in groups:
+            h = u // 2
+            n = g["arrays"] * g["wg"] * h
+            bank = g["pre"] == 0
+            n_neg = g["wg"] * h if bank else 0
+            segs.append((g["off"], off, n, off + n, n_neg))
+            g["off"] = off
+            off += n + n_neg
+            if bank:
+                g["arrays"] += 1
+            else:
+                g["pre"] -= 1
+        steps.append(segs)
+        cap = max(cap, off)
+        u //= 2
+    tail = [(g["off"], g["wg"], w0, g["arrays"], g["pre"])
+            for g, (w0, _, _) in zip(groups, runs)]
+    return steps, tail, u_tail, cap
+
+
+def bucket_reduce_launches(m: int) -> int:
+    """Launches of one `curve_bucket_reduce` over m buckets a window: one
+    a wide level, then the tail."""
+    return max(0, m.bit_length() - REDUCE_TAIL_WIDTH.bit_length()) + 1
+
+
+def _check_splits(acc, splits):
+    w, m = acc.shape[-2:]
+    if m < 1 or m & (m - 1) or len(splits) != w or any(
+            s < 1 or s & (s - 1) or s > m for s in splits):
+        raise ValueError(f"curve_bucket_reduce: {m} buckets, splits "
+                         f"{list(splits)} for {w} windows")
+
+
+def curve_bucket_reduce_plain(group, acc, splits):
+    """Each window's sum_i (i+1) B_i of the bucket sums acc [4, *elem, W,
+    m] whose window w holds splits[w] sub-lanes a bucket (lane i*split + j
+    of bucket i): log2(split) pairwise pre-folds, then levels folding the
+    current sums and every bank pairwise and banking the negated even
+    half of the current sums, S'(V) = 2 S'(E + O) - sum(E), and at width
+    1 the Horner total = 2 total + bank over the banks, last first.
+    Returns [4, *elem, W]."""
+    _check_splits(acc, splits)
+    ops = curve_ops(group)
+    add = lambda a, b: curve_add_where_plain(group, a, b)
+    out = [None] * acc.shape[-2]
+    w0 = 0
+    while w0 < len(splits):
+        wg = 1
+        while w0 + wg < len(splits) and splits[w0 + wg] == splits[w0]:
+            wg += 1
+        arrays = [acc[..., w0:w0 + wg, :]]
+        pre = splits[w0].bit_length() - 1
+        while arrays[0].shape[-1] > 1:
+            folded = [add(x[..., 0::2], x[..., 1::2]) for x in arrays]
+            if pre:
+                pre -= 1
+            else:
+                folded.append(ops.neg(arrays[0][..., 0::2]))
+            arrays = folded
+        total = arrays[0][..., 0]
+        for bank in reversed(arrays[1:]):
+            total = add(add(total, total), bank[..., 0])
+        for i in range(wg):
+            out[w0 + i] = total[..., i]
+        w0 += wg
+    return torch.stack(out, dim=-1)
+
+
+_plans: dict = {}
+
+
+def _reduce_plan_on(dev, m: int, splits):
+    """reduce_plan on dev, made once for each shape: (its segments, then
+    its tail groups, as one int64 tensor; segments a step; adds a step;
+    tail groups; tail width; scratch lanes; most arrays a tail window)."""
+    key = (str(dev), m, tuple(splits))
+    if key not in _plans:
+        steps, tail, u, cap = reduce_plan(m, splits)
+        rows = [r for segs in steps for r in segs] + tail
+        _plans[key] = (torch.tensor(rows, dtype=torch.int64, device=dev),
+                       [len(segs) for segs in steps],
+                       [sum(r[2] for r in segs) for segs in steps],
+                       len(tail), u, cap, max(g[3] for g in tail))
+    return _plans[key]
+
+
+def curve_bucket_reduce(group: str, acc, splits):
+    """The bucket reduction of an MSM as `bucket_reduce_launches(m)`
+    launches: acc [4, *elem, W, m] the drain's sub-lane sums (m a power of
+    two; window w in splits[w] sub-lanes a bucket) -> each window's
+    sum_i (i+1) B_i [4, *elem, W], canonical: the very adds of
+    `curve_bucket_reduce_plain`, in its order."""
+    _check_splits(acc, splits)
+    if not _on_cuda(acc):
+        return curve_bucket_reduce_plain(group, acc, splits)
+    e = _elem_shape(group)
+    w, m = acc.shape[-2:]
+    _check(acc, torch.int32, (4, *e, w, m), "acc")
+    desc, nsegs, nadds, ngroups, u, cap, arrays = _reduce_plan_on(
+        acc.device, m, splits)
+    bufs = [torch.empty((4, *e, cap), dtype=torch.int32, device=acc.device)
+            for _ in range(min(2, len(nsegs)))]
+    src, src_n, row = acc, w * m, 0
+    for k, (nseg, n) in enumerate(zip(nsegs, nadds)):
+        dst = bufs[k % 2]
+        _launch(f"{group}_bucket_reduce", f"ug_{group}_reduce_step",
+                src.data_ptr(), src_n, dst.data_ptr(), cap,
+                desc.data_ptr() + 40 * row, nseg, n)
+        src, src_n, row = dst, cap, row + nseg
+    out = torch.empty((4, *e, w), dtype=torch.int32, device=acc.device)
+    _launch(f"{group}_bucket_reduce", f"ug_{group}_reduce_tail",
+            src.data_ptr(), src_n, desc.data_ptr() + 40 * row, ngroups, w, u,
+            arrays, out.data_ptr(), w)
+    return out
+
+
 def curve_horner_scale_plain(group, pts, c: int):
+    """Lane w of the window sums [4, *elem, W] doubled c*w times."""
     ops = curve_ops(group)
     n = pts.shape[-1]
     lane = torch.arange(n, device=pts.device)
@@ -461,18 +613,69 @@ def curve_horner_scale_plain(group, pts, c: int):
     return pts
 
 
-def curve_horner_scale(group: str, pts, c: int):
-    """xyzz window sums [4, *elem, W] -> lane w doubled c*w times, i.e.
-    2^(c*w) * S_w (the window combine's scaling).  The lane index is the
-    window index, so one launch block holds every lane: W <= 128."""
+COMBINE_MAX_WINDOWS = 128
+
+
+def curve_window_combine_plain(group, pts, c: int):
+    """sum_w 2^(c*w) S_w of the window sums pts [4, *elem, W]: window w
+    doubled c*w times, padded with infinity to m = 2^k >= max(W, 2), then
+    folded pairwise.  Returns the xyzz point [4, *elem]."""
+    ops = curve_ops(group)
+    w = pts.shape[-1]
+    m = 1 << max(1, (w - 1).bit_length())
+    total = torch.cat([curve_horner_scale_plain(group, pts, c),
+                       ops.inf_xyzz((m - w,), pts.device, pts.dtype)], -1)
+    while m > 1:
+        total = curve_add_where_plain(group, total[..., 0::2],
+                                      total[..., 1::2])
+        m //= 2
+    return total[..., 0]
+
+
+def curve_window_combine(group: str, pts, c: int):
+    """The window combine of an MSM as ONE launch: pts [4, *elem, W]
+    window sums (W <= COMBINE_MAX_WINDOWS) -> sum_w 2^(c*w) S_w, the
+    xyzz point [4, *elem], canonical; the doublings and adds of
+    `curve_window_combine_plain`, in its order.  The launch's blocks
+    write the scaled windows to a scratch and count themselves done in
+    an int the wrapper zeroes; the last one folds."""
     n = pts.shape[-1]
-    if n > 128:
-        raise ValueError(f"curve_horner_scale: {n} windows > 128")
+    if not 1 <= n <= COMBINE_MAX_WINDOWS or c < 1:
+        raise ValueError(f"curve_window_combine: {n} windows (1 .. "
+                         f"{COMBINE_MAX_WINDOWS}), c = {c}")
     if not _on_cuda(pts):
-        return curve_horner_scale_plain(group, pts, c)
+        return curve_window_combine_plain(group, pts, c)
     e = _elem_shape(group)
     _check(pts, torch.int32, (4, *e, n), "pts")
-    out = pts.clone()
-    _launch(f"{group}_horner_scale", f"ug_{group}_horner", out.data_ptr(),
-            n, c)
+    m = 1 << max(1, (n - 1).bit_length())
+    scaled = torch.empty((4, *e, m), dtype=torch.int32, device=pts.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=pts.device)
+    out = torch.empty((4, *e, 1), dtype=torch.int32, device=pts.device)
+    _launch(f"{group}_window_combine", f"ug_{group}_window_combine",
+            pts.data_ptr(), n, c, scaled.data_ptr(), counter.data_ptr(),
+            out.data_ptr())
+    return out[..., 0]
+
+
+# -- the Fq product's latency (a probe, no TPU kernel) ----------------------
+
+def fq_mul_chain_plain(a, b, steps: int):
+    F = fq()
+    for _ in range(steps):
+        a = F.mont_mul(a, b)
+    return a
+
+
+def fq_mul_chain(a: torch.Tensor, b: torch.Tensor, steps: int) -> torch.Tensor:
+    """Lane i: a_i multiplied by b_i `steps` times, each product waiting
+    for the last (a, b [8, n], canonical); one warp of lanes a launch
+    block, so its time over `steps` is one Fq product's latency."""
+    if not _on_cuda(a):
+        return fq_mul_chain_plain(a, b, steps)
+    n = a.shape[-1]
+    _check(a, torch.int32, (8, n), "a")
+    _check(b, torch.int32, (8, n), "b")
+    out = torch.empty_like(a)
+    _launch("fq_chain", "ug_fq_chain", a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, steps)
     return out

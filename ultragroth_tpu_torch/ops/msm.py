@@ -12,10 +12,11 @@ their stages), same algorithm and same stage contracts:
      every (window, bucket) lane drains its points in ONE
      `curve_bucket_drain` launch that gathers its own points from the
      point-major table;
-  3. bucket reduction sum_i (i+1) B_i by binary decomposition, every level
-     one `curve_add_where` launch;
-  4. window combine: `curve_horner_scale` (lane w doubled c*w times), then
-     a log2(W) pairwise fold.
+  3. bucket reduction sum_i (i+1) B_i by binary decomposition
+     (`curve_bucket_reduce`: one launch a wide level over every window,
+     then one tail launch);
+  4. window combine: window w doubled c*w times, then a log2(W) pairwise
+     fold (`curve_window_combine`, one launch).
 
 Host loops and kernels replace the JAX control flow:
   * the bucket loop's `lax.while_loop` over steps, its sticky-flag
@@ -113,14 +114,13 @@ def _signed_digits(s64: torch.Tensor, c: int, n_windows: int):
     return torch.stack(buckets), torch.stack(negs)
 
 
-def _accumulate(group: str, table, orders, counts, c: int, splits):
-    """Bucket accumulation for all windows (JAX package's
-    `_bucket_accumulate_all`) as ONE drain launch.  orders [W, N] int32
-    entries pid*2+sign, counts [W, 2^(c-1)].  Returns xyzz sub-lane
-    accumulators [4, *elem, W, 2^(c-1)]."""
-    dev = table.device
+def _drain_lanes(n: int, counts, c: int, splits):
+    """The drain's lanes for all windows: sub-lane j of bucket d of window
+    w reads order entries w*n + offset(d) + j, + split, ... (gidx,
+    stride, cnt, int32 [W * 2^(c-1)]).  counts [W, 2^(c-1)]."""
+    dev = counts.device
     n_buckets = 1 << (c - 1)
-    n_windows, n = orders.shape
+    n_windows = counts.shape[0]
     counts = counts.long()
     offsets = torch.cat([torch.zeros((n_windows, 1), dtype=torch.long,
                                      device=dev),
@@ -135,10 +135,23 @@ def _accumulate(group: str, table, orders, counts, c: int, splits):
     w_off = (torch.arange(n_windows, device=dev) * n)[:, None]
     gidx = (w_off + base).reshape(-1).to(torch.int32).contiguous()
     stride = split_w.expand(-1, n_buckets).reshape(-1).to(torch.int32).contiguous()
+    return gidx, stride, cnt.reshape(-1).to(torch.int32).contiguous()
+
+
+def _accumulate(group: str, table, orders, counts, c: int, splits):
+    """Bucket accumulation for all windows (JAX package's
+    `_bucket_accumulate_all`) as ONE drain launch.  orders [W, N] int32
+    entries pid*2+sign, counts [W, 2^(c-1)].  Returns xyzz sub-lane
+    accumulators [4, *elem, W, 2^(c-1)]."""
+    return _drain(group, table, orders,
+                  _drain_lanes(orders.shape[1], counts, c, splits), c)
+
+
+def _drain(group: str, table, orders, lanes, c: int):
+    """`_accumulate` after the lanes' index math: the drain launch."""
     acc = kernels.curve_bucket_drain(
-        group, table, orders.reshape(-1).contiguous(), gidx, stride,
-        cnt.reshape(-1).to(torch.int32).contiguous())
-    return acc.reshape(acc.shape[:-1] + (n_windows, n_buckets))
+        group, table, orders.reshape(-1).contiguous(), *lanes)
+    return acc.reshape(acc.shape[:-1] + (orders.shape[0], 1 << (c - 1)))
 
 
 def _add_all(group, a, b):
@@ -150,43 +163,19 @@ def _add_all(group, a, b):
     return out.reshape(shape)
 
 
-def _fold_pairs(group, acc):
-    """xyzz [..., 2m] -> [..., m]: lane i = acc[2i] + acc[2i+1]."""
-    return _add_all(group, acc[..., 0::2], acc[..., 1::2])
-
-
-def _weighted_totals(group, buckets, n_buckets: int):
-    """sum_i (i+1) B_i per window by binary decomposition:
-    S'(V) = 2 S'(E + O) - sum(E), S'([v]) = v, the negated even halves
-    banked alongside (every level one fused add), then a Horner over the
-    banked levels.  buckets [4, *elem, Wg, m] -> [4, *elem, Wg]."""
-    ops = curve_ops(group)
-    wg = buckets.shape[-2]
-    cur = buckets
-    pend = []                      # pend[l]: weight 2^l, negated even half
-    u = n_buckets
-    while u > 1:
-        ev_neg = ops.neg(cur[..., 0::2])
-        cat = torch.cat([cur] + pend, dim=-2)
-        folded = _fold_pairs(group, cat)
-        cur = folded[..., :wg, :]
-        pend = [folded[..., (i + 1) * wg:(i + 2) * wg, :]
-                for i in range(len(pend))]
-        pend.append(ev_neg)
-        u //= 2
-    total = cur[..., 0]
-    for lvl in reversed(pend):
-        total = _add_all(group, _add_all(group, total, total), lvl[..., 0])
-    return total
-
-
 def _bucket_orders(s64, inf, c: int, n_windows: int, pids):
     """Signed digits of every window, sorted by bucket: (orders [W, N]
     int32 entries pid*2 + sign, stable within a bucket; counts [W,
     2^(c-1)]).  pids [W, N]: the table column each (window, point) pair
     reads."""
+    return _sort_buckets(*_signed_digits(s64, c, n_windows), inf, c, pids)
+
+
+def _sort_buckets(buckets, negs, inf, c: int, pids):
+    """`_bucket_orders` after the digits: the stable sort by bucket and
+    the counts."""
+    n_windows = buckets.shape[0]
     n_buckets = 1 << (c - 1)
-    buckets, negs = _signed_digits(s64, c, n_windows)
     # bucket b >= 1 -> index b-1; bucket 0 and infinity points -> sentinel
     # n_buckets, which sorts last and is left out of the counts
     idx = torch.where(buckets > 0, buckets - 1, n_buckets)
@@ -201,6 +190,36 @@ def _bucket_orders(s64, inf, c: int, n_windows: int, pids):
     return orders, counts.reshape(n_windows, n_buckets + 1)[:, :n_buckets]
 
 
+def msm_stages(group: str, table: torch.Tensor, inf: torch.Tensor,
+               scalars: torch.Tensor, c: int):
+    """`msm`'s work as a generator: yields (stage, its output) after each
+    stage is enqueued (readback, digits, sort_bincount, index_math, drain,
+    reduce, combine), the last output the MSM's point.  A caller that
+    times the stages synchronises between them; `msm` runs them back to
+    back.  N > 0 (see `msm`)."""
+    dev = table.device
+    n = table.shape[0]
+    s64 = widen(scalars)
+    if not bool(_scalars_below_r(s64)):
+        raise ValueError("msm: scalars must be canonical (< r)")
+    yield "readback", s64
+    n_windows = n_windows_for(c)
+    splits = [_split_factor(w, c) for w in range(n_windows)]
+    digits = _signed_digits(s64, c, n_windows)
+    yield "digits", digits
+    orders, counts = _sort_buckets(
+        *digits, inf.to(dev), c,
+        torch.arange(n, device=dev)[None, :].expand(n_windows, n))
+    yield "sort_bincount", (orders, counts)
+    lanes = _drain_lanes(n, counts, c, splits)
+    yield "index_math", lanes
+    acc = _drain(group, table.contiguous(), orders, lanes, c)
+    yield "drain", acc
+    wsums = kernels.curve_bucket_reduce(group, acc, splits)
+    yield "reduce", wsums
+    yield "combine", kernels.curve_window_combine(group, wsums, c)
+
+
 @torch.inference_mode()
 def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
         scalars: torch.Tensor, c: int) -> torch.Tensor:
@@ -209,46 +228,15 @@ def msm(group: str, table: torch.Tensor, inf: torch.Tensor,
     table: [N, 2, *elem] point-major Montgomery affine (x, y); inf: [N]
     bool; scalars: [8, N] standard-form Fr planes, each < r (checked)."""
     ops = curve_ops(group)
-    dev = table.device
     n = table.shape[0]
     if scalars.shape != (8, n) or inf.shape != (n,):
         raise ValueError(f"msm: table {tuple(table.shape)}, inf "
                          f"{tuple(inf.shape)}, scalars {tuple(scalars.shape)}")
     if n == 0:      # the drain's masked steps read order entry 0
-        return ops.inf_xyzz((1,), dev, table.dtype)[..., 0]
-    s64 = widen(scalars)
-    if not bool(_scalars_below_r(s64)):
-        raise ValueError("msm: scalars must be canonical (< r)")
-    n_windows = n_windows_for(c)
-    n_buckets = 1 << (c - 1)
-    splits = [_split_factor(w, c) for w in range(n_windows)]
-
-    orders, counts = _bucket_orders(
-        s64, inf.to(dev), c, n_windows,
-        torch.arange(n, device=dev)[None, :].expand(n_windows, n))
-    acc = _accumulate(group, table.contiguous(), orders, counts, c, splits)
-
-    groups: dict[int, list[int]] = {}
-    for w in range(n_windows):
-        groups.setdefault(splits[w], []).append(w)
-    wsums = [None] * n_windows
-    for split, ws in groups.items():
-        g = acc[..., torch.tensor(ws, device=dev), :]
-        for _ in range(split.bit_length() - 1):
-            g = _fold_pairs(group, g)
-        totals = _weighted_totals(group, g, n_buckets // split)
-        for i, w in enumerate(ws):
-            wsums[w] = totals[..., i]
-
-    stacked = torch.stack(wsums, dim=-1).contiguous()
-    scaled = kernels.curve_horner_scale(group, stacked, c)
-    m = 1 << max(1, (n_windows - 1).bit_length())
-    pad = ops.inf_xyzz((m - n_windows,), dev, table.dtype)
-    total = torch.cat([scaled, pad], dim=-1)
-    while m > 1:
-        total = _fold_pairs(group, total)
-        m //= 2
-    return total[..., 0]
+        return ops.inf_xyzz((1,), table.device, table.dtype)[..., 0]
+    for _, out in msm_stages(group, table, inf, scalars, c):
+        pass
+    return out
 
 
 def msm_g1(table, inf, scalars, c: int = 16):
@@ -399,5 +387,5 @@ def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
         s64, inf.to(dev), c, nw,
         torch.arange(nw * size, device=dev).reshape(nw, size))
     acc = _accumulate(group, table, orders, counts, c, [1] * nw)
-    totals = _weighted_totals(group, _fold_windows(group, acc), 1 << (c - 1))
-    return totals[..., 0]
+    return kernels.curve_bucket_reduce(group, _fold_windows(group, acc),
+                                       [1])[..., 0]
