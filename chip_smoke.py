@@ -47,14 +47,24 @@ stage, and phase 7 checks each path's reduce and combine launches
 against the design's count, `curve_add_where` only in the fixed-base
 window folds.
 
+The fast NTT is `fr_cg_ntt`, two launches a 2^20 transform (the Bailey
+split's twiddle product and transpose folded into the first): phase 1
+prints its registers, spills and blocks per SM, phase 2 holds both pass
+shapes (natural; folded and transposed) equal to the plain version,
+forward and inverse, in both builds, and times them (the second in the
+row's `folded` object), phase 4 times the 2^20 quotient in both NTT modes, and phase 7 checks 12
+launches a prove and a fast quotient's `fr_mont_mul` launches equal to
+the base one's (no split-twiddle product).
+
 One line per phase (name, seconds, pass/fail) is printed as each phase
 ends; before the last line come one JSON object with every kernel's
 launches (their sum over the driven paths in `launches`, each path's own
 count in `launches_by_path`) and its times, and the card's name and power
 limit; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits non-zero.  Each driven path (the Groth16 2^20 prove, the same prove
-in the `base` NTT mode and over fixed-base tables, the UltraGroth set-up
-and prove, the UltraGroth prove through the API in the `mma` mode) runs
+in the `base` NTT mode and over fixed-base tables, the 2^20 quotient in
+each NTT mode, the UltraGroth set-up and prove, the UltraGroth prove
+through the API in the `mma` mode) runs
 with the launch counts set to 0 just before it and read just after; the
 `mont_mul_mma` row counts the launches of MMA-built kernels.
 
@@ -410,21 +420,31 @@ def _kernel_checks(dev, plain, drain_cache):
            plain(lambda: K.fr_butterfly_plain(work.clone(), tw)),
            2 * 32 * n + 32 * (n // 2), (n // 2) * MUL_IMAD)
 
-    # -- fr_cg_ntt at the shape ntt_fast gives it at 2^20: two launches of
-    #    [8, 2^10, 2^10] (2^10 columns of 2^10 points) per transform -------
+    # -- fr_cg_ntt at the shapes ntt_fast gives it at 2^20: [8, 2^10, 2^10]
+    #    twice a transform, the first with the split twiddles and stored
+    #    transposed (`folded`), the second natural; forward and inverse ---
     from ultragroth_tpu_torch.ops.ntt import Domain
     log_m = K.CG_MAX_LOG
-    m, cb = 1 << log_m, table_n >> K.CG_MAX_LOG
+    m, cols = 1 << log_m, table_n >> K.CG_MAX_LOG
     dom = Domain(log_m, dev)
-    x = _rand_field((8, m * cb), R, gen, dev).reshape(8, m, cb).contiguous()
-    for inverse in (False, True):
-        tw = dom.cg_twiddles(log_m, inverse)
-        k = K.fr_cg_ntt(x, tw)
-        p = K.fr_cg_ntt_plain(x, tw)
-        check(torch.equal(k, p), "fr_cg_ntt disagrees with its plain version")
-    record("fr_cg_ntt", err(k, p), cuda_time_ms(lambda: K.fr_cg_ntt(x, tw), 50),
-           plain(lambda: K.fr_cg_ntt_plain(x, tw)),
-           2 * 32 * m * cb + tw.numel() * 4, log_m * (m // 2) * cb * MUL_IMAD)
+    x = _rand_field((8, m * cols), R, gen, dev).reshape(8, m, cols).contiguous()
+    for folded in (False, True):
+        for inverse in (False, True):
+            tw = dom.ntt_twiddles(log_m, inverse)
+            args = ((dom.split_twiddles(log_m, log_m, inverse), 1) if folded
+                    else (None, 0))
+            k = K.fr_cg_ntt(x, tw, *args)
+            p = K.fr_cg_ntt_plain(x, tw, *args)
+            kind = "folded" if folded else "natural"
+            check(torch.equal(k, p), f"fr_cg_ntt ({kind}, inverse "
+                  f"{inverse}) disagrees with its plain version")
+        products = K.cg_ntt_products(log_m, cols, args[1])
+        record("fr_cg_ntt:folded" if folded else "fr_cg_ntt", err(k, p),
+               cuda_time_ms(lambda: K.fr_cg_ntt(x, tw, *args), 50),
+               plain(lambda: K.fr_cg_ntt_plain(x, tw, *args)),
+               (3 if folded else 2) * 32 * m * cols + tw.numel() * 4,
+               products * MUL_IMAD, products=products)
+    del dom, x, k, p
 
     lat_ms = fq_latency(dev, gen)
     results["fq_latency"] = dict(ms=lat_ms)
@@ -1279,6 +1299,10 @@ def main() -> int:
                 print(f"  [{mode}] {g}_bucket_drain: {regs} registers, "
                       f"{local} B local memory (stack and spills) a thread, "
                       f"{blocks} blocks of 128 threads per SM", flush=True)
+            regs, local, blocks = _build.ntt_info(mode, K.CG_MAX_LOG)
+            print(f"  [{mode}] fr_cg_ntt (2^{K.CG_MAX_LOG} points a column): "
+                  f"{regs} registers, {local} B local memory (stack and "
+                  f"spills) a thread, {blocks} blocks per SM", flush=True)
             # the reduction's tail at the fixed-base MSM's 13 arrays of 16
             # lanes (its largest), the combine at 20 windows
             for (g, name), (regs, local, blocks) in _build.reduce_info(
@@ -1348,8 +1372,10 @@ def main() -> int:
             K.fr_mont_mul(lb.words_to_planes(witness, dev), prover._r2),
             prover.coef_val_mont, prover.coef_m, prover.coef_c,
             prover.coef_s, zk.domain_size)
-        h = quotient_scalars(a, b, prover.domain)             # fast mode
-        h_base = quotient_scalars(a, b, prover.domain, "base")
+        h = drive("quotient_2^20", lambda: quotient_scalars(
+            a, b, prover.domain))                             # fast mode
+        h_base = drive("quotient_2^20_base", lambda: quotient_scalars(
+            a, b, prover.domain, "base"))
         with plain_fr_kernels():
             h_plain = quotient_scalars(a, b, prover.domain)
         check(torch.equal(h, h_base),
@@ -1450,6 +1476,24 @@ def main() -> int:
                   f"gives {want}")
             print(f"  {name}: launches {json.dumps(got)} == the design's",
                   flush=True)
+        # the fast NTT: two fr_cg_ntt launches a 2^20 transform (the split
+        # twiddles and the transpose inside the first), six transforms a
+        # quotient, and no fr_mont_mul beyond the base mode's
+        q_fast, q_base = paths["quotient_2^20"], paths["quotient_2^20_base"]
+        check(q_fast["fr_cg_ntt"] == 12 and q_fast["fr_butterfly"] == 0,
+              f"the fast quotient launched {q_fast['fr_cg_ntt']} fr_cg_ntt "
+              f"and {q_fast['fr_butterfly']} fr_butterfly, not 12 and 0")
+        check(q_fast["fr_mont_mul"] == q_base["fr_mont_mul"],
+              f"the fast quotient launched {q_fast['fr_mont_mul']} "
+              f"fr_mont_mul, the base one {q_base['fr_mont_mul']}")
+        for name in ("groth16_2^20", "groth16_2^20_fixed", "ultragroth_2^20",
+                     "ultragroth_2^20_steady", "ultragroth_2^20_api_mma"):
+            check(paths[name]["fr_cg_ntt"] == 12, f"{name}: "
+                  f"{paths[name]['fr_cg_ntt']} fr_cg_ntt launches, not 12")
+        print(f"  quotient 2^20: fast {q_fast['fr_cg_ntt']} fr_cg_ntt + "
+              f"{q_fast['fr_mont_mul']} fr_mont_mul, base "
+              f"{q_base['fr_butterfly']} fr_butterfly + {q_base['fr_mont_mul']}"
+              " fr_mont_mul", flush=True)
         api_mma = mma_paths["ultragroth_2^20_api_mma"]
         missing = [k for k in prove_kernels if api_mma[k] == 0]
         check(not missing, f"MMA builds never launched on the mma path: "
@@ -1471,6 +1515,11 @@ def main() -> int:
                 row["exceptional"] = {
                     "replaces": DRAIN_EXCEPTIONAL_REPLACES, **metrics[exc],
                     "mma_ms": metrics_mma[exc]["ms"]}
+            if name == "fr_cg_ntt":
+                # the split's first pass of the same launches: the split
+                # twiddle product and the transposed store folded in
+                row["folded"] = {**metrics["fr_cg_ntt:folded"],
+                                 "mma_ms": metrics_mma["fr_cg_ntt:folded"]["ms"]}
             if name.endswith("_bucket_reduce"):
                 # the fixed-base MSM's reduction: one window of 2^16
                 fx = f"{name}:fixed"

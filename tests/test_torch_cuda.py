@@ -183,17 +183,31 @@ def test_madd_valid_matches_plain_on_card(dev, group):
     assert bool(ops.is_inf(p[..., 12:14]).all())
 
 
-@pytest.mark.parametrize("log_m,cb", [(10, 4), (4, 37), (1, 1)])
-def test_cg_ntt_matches_plain_on_card(dev, log_m, cb):
-    g = torch.Generator().manual_seed(64)
-    x = torch.randint(0, 1 << 32, (8, (1 << log_m) * cb), generator=g,
-                      dtype=torch.int64)
-    x[7] %= lb.int_to_limbs(R)[7]
-    x = x.reshape(8, 1 << log_m, cb)
+@pytest.mark.parametrize("mode", ["cios", "mma"])
+@pytest.mark.parametrize("log_m,cols,cb,fold", [
+    (10, 4, 0, False), (10, 3, 1, True), (4, 37, 0, False), (4, 64, 4, True),
+    (6, 40, 4, True), (1, 1, 0, False)])
+def test_cg_ntt_matches_plain_on_card(dev, mode, log_m, cols, cb, fold):
+    """Natural passes and the split's first pass (the folded twiddle and
+    the transposed store), columns that do and do not fill a block, both
+    builds."""
+    g = torch.Generator().manual_seed(64 + log_m)
+    m = 1 << log_m
+
+    def field(*shape):
+        t = torch.randint(0, 1 << 32, (8, int(np.prod(shape))), generator=g,
+                          dtype=torch.int64)
+        t[7] %= lb.int_to_limbs(R)[7]
+        return t.reshape(8, *shape)
+
+    x = field(m, cols)
+    stw = field(cols // cb, m) if fold else None
     for inverse in (False, True):
-        tw = Domain(log_m, "cpu").cg_twiddles(log_m, inverse)
-        k = K.fr_cg_ntt(_cu(x, dev), _cu(tw, dev))
-        assert torch.equal(lb.widen(k.cpu()), K.fr_cg_ntt_plain(x, tw))
+        tw = Domain(log_m, "cpu").ntt_twiddles(log_m, inverse)
+        with K.field_mode(mode):
+            k = K.fr_cg_ntt(_cu(x, dev), _cu(tw, dev),
+                            None if stw is None else _cu(stw, dev), cb)
+        assert torch.equal(lb.widen(k.cpu()), K.fr_cg_ntt_plain(x, tw, stw, cb))
 
 
 def test_wrapper_refuses_cpu_dtype_on_card(dev):

@@ -136,8 +136,8 @@ def test_limbs_and_convert_roundtrip(p):
 
 
 def test_port_imports_without_jax():
-    """The port (and chip_smoke.py's imports) load with jax and
-    ultragroth_tpu made unimportable."""
+    """The port (and chip_smoke.py's and the tools' imports) load with jax
+    and ultragroth_tpu made unimportable."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -156,6 +156,8 @@ def test_port_imports_without_jax():
         "from ultragroth_tpu_torch import api, cli, log, runtime, server\n"
         "from ultragroth_tpu_torch.testkit import setup, circuits, dsetup\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_drain_variants, torch_ntt_variants, torch_variants\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or\n"
         "               m.startswith('ultragroth_tpu.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"

@@ -4,14 +4,15 @@ its own tests run them), G1 and G2, with infinity on either side, P == Q
 and P == -Q; the plain bucket drain against the JAX package's drain (its
 step kernels with the sticky redo) and the oracle; and the kernels' own
 lane bodies (csrc/*.cuh, built for the host with g++) against the plain
-versions.  (`fr_cg_ntt`'s network is held against the JAX package in
-tests/test_torch_ntt_fast.py.)
+versions, `fr_cg_ntt`'s block program among them.  (`fr_cg_ntt`'s
+network is held against the JAX package in tests/test_torch_ntt_fast.py.)
 
 Curve outputs are compared after to_affine (the xyzz representative of a
 point is not unique) against the JAX package and the oracle, exactly
 against the lane bodies; flags exactly.  Widths stay at 16-24 lanes.
 """
 import ctypes
+import functools
 import shutil
 import subprocess
 
@@ -27,6 +28,7 @@ from ultragroth_tpu_torch.ops import kernels as K
 from ultragroth_tpu_torch.ops import limbs as lb
 from ultragroth_tpu_torch.ops.curve import (curve_ops, table_from_planes,
                                             table_planes)
+from ultragroth_tpu_torch.ops.ntt import Domain
 from ultragroth_tpu_torch.oracle import curve as oc
 
 from tests.test_torch_field import (REPO, affine_points, elem_to_jax,
@@ -394,19 +396,52 @@ def test_madd_valid_lane_body_matches_plain(host_lib, group):
         group, acc, table, tinf, scalars, 1)))
 
 
-@pytest.mark.parametrize("log_m,cols", [(1, 3), (3, 1), (4, 5)])
-def test_cg_stage_body_matches_plain(host_lib, log_m, cols):
-    """One constant-geometry stage of fr_cg_ntt, the g++ build of its
-    butterfly body, against one stage of the plain network."""
+# fr_cg_ntt's block program: (log_m, columns, cb, folded split twiddle).
+# A block of the CIOS build (512 threads) holds 512, 512, 64 and 4 columns
+# at log_m = 1, 3, 6, 10, of the MMA build (256) half as many: column
+# counts that fill the last block of both builds and that fill neither,
+# over one block and several; natural stores (cb = 0) and the split's
+# folded, transposed ones (cb > 0, the only ones the kernel takes).
+CG_CASES = [(1, 300, 0, False), (1, 512, 4, True), (3, 5, 0, False),
+            (3, 512, 1, True), (6, 40, 0, False), (6, 64, 2, True),
+            (6, 200, 4, True), (10, 3, 0, False), (10, 4, 1, True),
+            (10, 10, 2, True)]
+
+
+@functools.cache
+def _cg_case(log_m, cols, cb, fold):
+    """(x, split twiddles or None, {inverse: (tw, plain output)}), made once
+    for both harness builds."""
     m = 1 << log_m
-    A = _Args()
     x = lb.ints_to_planes(sample(R, m * cols, seed=40 + log_m)).reshape(
         8, m, cols)
-    tw = lb.ints_to_planes(sample(R, m // 2, seed=50 + log_m))
-    out = np.zeros((8, m, cols), np.uint32)
-    host_lib.ugh_fr_cg_stage(A.p(A.u32(x)), A.p(out), A.p(A.u32(tw)),
-                             ctypes.c_int64(m), ctypes.c_int64(cols))
-    np.testing.assert_array_equal(out, A.u32(K.cg_stages_plain(x, tw[None])))
+    stw = lb.ints_to_planes(sample(R, m * cols // cb, seed=50 + log_m)).reshape(
+        8, cols // cb, m) if fold else None
+    out = {}
+    for inverse in (False, True):
+        tw = Domain(log_m, "cpu").ntt_twiddles(log_m, inverse)
+        out[inverse] = (tw, K.fr_cg_ntt_plain(x, tw, stw, cb))
+    return x, stw, out
+
+
+def _cg_ntt_body(lib, log_m, cols, cb, fold):
+    """The harness's fr_cg_ntt (each block's phases thread by thread)
+    against the plain version (the constant-geometry network, bit
+    reversal, `fr_mont_mul_plain` and permute), forward and inverse."""
+    x, stw, want = _cg_case(log_m, cols, cb, fold)
+    for tw, plain in want.values():
+        A = _Args()
+        out = np.zeros(tuple(plain.shape), np.uint32)
+        assert lib.ugh_fr_cg_ntt(
+            A.p(A.u32(x)), A.p(A.u32(tw)),
+            None if stw is None else A.p(A.u32(stw)), A.p(out),
+            ctypes.c_int(log_m), ctypes.c_int64(cols), ctypes.c_int64(cb)) == 0
+        np.testing.assert_array_equal(out, A.u32(plain))
+
+
+@pytest.mark.parametrize("log_m,cols,cb,fold", CG_CASES)
+def test_cg_ntt_body_matches_plain(host_lib, log_m, cols, cb, fold):
+    _cg_ntt_body(host_lib, log_m, cols, cb, fold)
 
 
 def test_fr_lane_bodies_match_plain(host_lib):
@@ -439,6 +474,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):      # a column above the kernel's cap
         K.fr_cg_ntt(torch.zeros(8, 2048, 1, dtype=torch.int64),
                     torch.zeros(11, 8, 1024, dtype=torch.int64))
+    for stw, cb in ((None, 1), (torch.zeros(8, 2, 4, dtype=torch.int64), 0)):
+        with pytest.raises(ValueError):  # the transposed store is the folded one
+            K.fr_cg_ntt(torch.zeros(8, 4, 2, dtype=torch.int64),
+                        torch.zeros(8, 2, dtype=torch.int64), stw, cb)
     with pytest.raises(ValueError):      # a drain's steps run forwards
         K.curve_bucket_drain("g1", torch.zeros(1, 2, 8, dtype=torch.int64),
                              *(torch.zeros(1, dtype=torch.int32),) * 4, 3, 2)

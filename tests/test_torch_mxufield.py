@@ -32,7 +32,7 @@ from ultragroth_tpu_torch.ops.mxufield import mont_mul_mma_plain
 
 from tests.test_torch_field import REPO, sample
 from tests.test_torch_kernels import (
-    _Args, test_cg_stage_body_matches_plain as _cg_stage_body,
+    CG_CASES, _Args, _cg_ntt_body,
     test_curve_lane_bodies_match_plain as _curve_bodies,
     test_fr_lane_bodies_match_plain as _fr_bodies,
     test_madd_valid_lane_body_matches_plain as _madd_valid_body)
@@ -178,5 +178,9 @@ def test_mma_build_curve_lane_bodies_match_plain(mma_host_lib, group):
 
 def test_mma_build_fr_lane_bodies_match_plain(mma_host_lib):
     _fr_bodies(mma_host_lib)
-    for log_m, cols in ((1, 3), (4, 5)):
-        _cg_stage_body(mma_host_lib, log_m, cols)
+
+
+@pytest.mark.parametrize("log_m,cols,cb,fold", CG_CASES)
+def test_mma_build_cg_ntt_body_matches_plain(mma_host_lib, log_m, cols, cb,
+                                            fold):
+    _cg_ntt_body(mma_host_lib, log_m, cols, cb, fold)

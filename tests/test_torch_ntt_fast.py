@@ -46,10 +46,11 @@ def test_ntt_fast_matches_jax_wide(log_n, inverse):
     _jax_ntt_fast_matches(log_n, inverse)
 
 
-@pytest.mark.parametrize("log_n", [6, 9, K.CG_MAX_LOG + 1])
+@pytest.mark.parametrize("log_n", [6, 9, K.CG_MAX_LOG + 1, K.CG_MAX_LOG + 2])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_ntt_fast_matches_base(log_n, inverse):
-    """log_n above the kernel's cap runs the Bailey split."""
+    """log_n above the kernel's cap runs the Bailey split (+2: a split
+    whose second pass is 2^2 points)."""
     a, _ = _mont(1 << log_n, seed=60 + log_n)
     dom = N.Domain(log_n, "cpu")
     assert torch.equal(N.ntt_fast(a, dom, inverse), N.ntt(a, dom, inverse))
@@ -72,8 +73,52 @@ def test_cg_network_and_twiddles_match_jax():
     got = K.cg_stages_plain(x, tws)
     exp = dntt._cg_kernel_call(jx, log_m, False)
     assert torch.equal(got, convert.to_torch(np.asarray(exp)))
-    # the wrapper's contract: the same network, natural order out
-    assert torch.equal(K.fr_cg_ntt(x, tws), got[:, K.bitrev_perm(log_m)])
+    # the wrapper's contract: the same network, natural order out, from
+    # the table of w^0 .. w^(M/2-1)
+    assert torch.equal(K.fr_cg_ntt(x, dom.ntt_twiddles(log_m, False)),
+                       got[:, K.bitrev_perm(log_m)])
+
+
+@pytest.mark.parametrize("cb", [1, 4])
+def test_folded_pass_is_the_split_step(cb):
+    """fr_cg_ntt with the split twiddles and cb > 0 equals the steps it
+    folds: the pass, `fr_mont_mul` by the twiddles, the transpose."""
+    log_m2, log_m1 = 3, 2
+    m2, m1 = 1 << log_m2, 1 << log_m1
+    vals = sample(R, m2 * m1 * cb, seed=71)
+    x = lb.ints_to_planes(vals).reshape(8, m2, m1 * cb)
+    dom = N.Domain(log_m2 + log_m1, "cpu")
+    for inverse in (False, True):
+        tw = dom.ntt_twiddles(log_m2, inverse)
+        stw = dom.split_twiddles(log_m1, log_m2, inverse)         # [8, M1, M2]
+        v = K.fr_cg_ntt(x, tw).reshape(8, m2, m1, cb)
+        v = K.fr_mont_mul(v, dom.split_twiddles(log_m2, log_m1, inverse)[
+            ..., None].expand(8, m2, m1, cb).contiguous())
+        want = v.permute(0, 2, 1, 3).contiguous()                 # [8, M1, M2, CB]
+        assert torch.equal(K.fr_cg_ntt(x, tw, stw, cb), want)
+        with pytest.raises(ValueError):     # no transposed store unfolded
+            K.fr_cg_ntt(x, tw, None, cb)
+
+
+def test_split_is_two_passes(monkeypatch):
+    """A transform of twice the kernel's cap is two fr_cg_ntt calls, the
+    first with the split twiddles, and no fr_mont_mul or copy between
+    (the cap lowered to 2^3 here, as 2^10 is on the card)."""
+    monkeypatch.setattr(K, "CG_MAX_LOG", 3)
+    calls = []
+    real = K.fr_cg_ntt
+    monkeypatch.setattr(K, "fr_cg_ntt", lambda *a: calls.append(
+        ("fr_cg_ntt", a[0].shape, len(a) > 2)) or real(*a))
+    monkeypatch.setattr(K, "fr_mont_mul", lambda *a: calls.append(
+        ("fr_mont_mul",)) or K.fr_mont_mul_plain(*a))
+    a, _ = _mont(1 << 6, seed=72)
+    dom = N.Domain(6, "cpu")
+    N.ntt_fast(a, dom)                  # the domain makes its tables once
+    calls.clear()
+    got = N.ntt_fast(a, dom)
+    assert calls == [("fr_cg_ntt", (8, 8, 8), True),
+                     ("fr_cg_ntt", (8, 8, 8), False)]
+    assert torch.equal(got, N.ntt(a, dom))
 
 
 def test_split_twiddles_match_jax():

@@ -42,8 +42,6 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -51,8 +49,7 @@ import time
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+import torch_variants as V
 
 STEPS = 256
 LANES = 20 * 4096
@@ -192,49 +189,21 @@ VARIANTS = {
 }
 
 
-def variant_source(tmp, group, name):
-    """A copy of csrc/ with the variant's changes; returns its kernel file."""
-    from ultragroth_tpu_torch.ops import _build
-    d = os.path.join(tmp, f"{group}_{name}")
-    shutil.copytree(_build.CSRC, d)
-    with open(os.path.join(d, "drain_pair.cuh"), "w") as f:
-        f.write(PAIR_HEADER)
-    for fname, old, new in VARIANTS[group][name]:
-        path = os.path.join(d, fname)
-        with open(path) as f:
-            text = f.read()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{group} {name}: {fname} does not hold the "
-                               f"text to change exactly once: {old!r}")
-        with open(path, "w") as f:
-            f.write(text.replace(old, new))
-    return os.path.join(d, f"{group}_kernels.cu")
-
-
 def build(tmp):
     """{(group, variant): ctypes library}, every nvcc started together, and
     the port's own cios build beside them."""
     from ultragroth_tpu_torch.ops import _build
-    procs = {}
+    jobs = {}
     for g, variants in VARIANTS.items():
-        for name in variants:
-            so = os.path.join(tmp, f"{g}_{name}.so")
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                   variant_source(tmp, g, name)]
-            procs[(g, name)] = (so, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    _build.load("cios")
-    libs = {}
-    for key, (so, proc) in procs.items():
-        out = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {key}:\n{out}")
-        lib = ctypes.CDLL(so, mode=os.RTLD_LOCAL)
-        for sym in (f"ug_{key[0]}_bucket_drain", f"ug_{key[0]}_bucket_drain_info"):
-            getattr(lib, sym).argtypes = _build._SIGNATURES[sym]
-            getattr(lib, sym).restype = ctypes.c_int
-        libs[key] = lib
-    return libs
+        for name, changes in variants.items():
+            d = V.patched_csrc(tmp, f"{g}_{name}", changes,
+                               {"drain_pair.cuh": PAIR_HEADER})
+            jobs[(g, name)] = (os.path.join(tmp, f"{g}_{name}.so"),
+                               os.path.join(d, f"{g}_kernels.cu"), [])
+    return {key: V.bind(lib, f"ug_{key[0]}_bucket_drain",
+                        f"ug_{key[0]}_bucket_drain_info")
+            for key, (lib, _) in V.build(
+                jobs, meanwhile=lambda: _build.load("cios")).items()}
 
 
 def inputs(group, gen, dev):
@@ -380,10 +349,7 @@ def main() -> int:
         print("torch_drain_variants: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(f"{smi} | torch {torch.__version__}", flush=True)
+    print(V.card(), flush=True)
     with tempfile.TemporaryDirectory(prefix="ug_drain_variants_") as tmp:
         libs = build(tmp)
         step_times(libs, dev)

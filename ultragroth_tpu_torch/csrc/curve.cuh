@@ -321,29 +321,6 @@ UG_HD void lane_butterfly(uint32_t* a, const uint32_t* tw, int64_t n, int64_t ha
   store(a, n, iw, 0, Fr::sub(u, t));
 }
 
-// fr_cg_ntt, one constant-geometry (Pease) stage.  The planes [8][n] hold
-// `cols` columns of m points, element (j, c) at j*cols + c (n = m*cols).
-// Butterfly b (i = b / cols, c = b % cols) of column c:
-//   out[2i] = a[i] + tw[i]*a[i + m/2],  out[2i+1] = a[i] - tw[i]*a[i + m/2]
-// with tw the stage's [8][m/2] twiddles.  Split into the read-and-compute
-// half and the store half so that a kernel can run the stage in place with
-// a barrier between them.
-UG_HD void cg_butterfly(const uint32_t* a, const uint32_t* tw, int64_t n, int64_t m,
-                        int64_t cols, int64_t b, fe& hi, fe& lo) {
-  const int64_t i = b / cols, c = b - i * cols;
-  const fe u = load(a, n, i * cols + c, 0);
-  const fe t = Fr::mul(load(a, n, (i + m / 2) * cols + c, 0), load(tw, m / 2, i, 0));
-  hi = Fr::add(u, t);
-  lo = Fr::sub(u, t);
-}
-
-UG_HD void cg_store(uint32_t* a, int64_t n, int64_t cols, int64_t b, const fe& hi,
-                    const fe& lo) {
-  const int64_t i = b / cols, c = b - i * cols;
-  store(a, n, 2 * i * cols + c, 0, hi);
-  store(a, n, (2 * i + 1) * cols + c, 0, lo);
-}
-
 // fr_mont_mul: out = a * b * R^-1, b broadcast over lanes when b_n == 1
 UG_HD void lane_fr_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
                        int64_t n, int64_t b_n, int64_t i, bool live = true) {

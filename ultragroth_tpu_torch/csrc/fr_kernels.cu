@@ -1,5 +1,5 @@
 // Fr kernels of the quotient pipeline: the Montgomery product, one NTT
-// butterfly stage, and the whole constant-geometry NTT of a column.
+// butterfly stage, and the whole NTT of columns (the fast mode's).
 //
 // Replaces (ultragroth_tpu/ops/kernels.py): fr_mont_mul (:22) and
 // fr_butterfly (:32), Pallas kernels built by fused_map (ops/fuse.py:46);
@@ -13,6 +13,7 @@
 // a [8, half] table (tw[j] for every block of the stage).  The MMA build
 // (UG_MMA_FIELD) of the same kernels: launch_common.cuh.
 #include "launch_common.cuh"
+#include "ntt.cuh"
 
 #define UG_FR_THREADS 256
 
@@ -51,87 +52,97 @@ extern "C" int UG_SYM(fr_butterfly)(void* a, const void* tw, int64_t n,
 }
 
 // ---------------------------------------------------------------------------
-// fr_cg_ntt: the constant-geometry (Pease) network of M = 2^log_m points
-// along axis 1 of x [8, M, CB] (Montgomery planes), all log_m stages in
-// shared memory, twiddles tw [log_m, 8, M/2]; the output y [8, M, CB] is in
-// NATURAL order: the kernel applies the final bit reversal as it stores
-// (the JAX kernel leaves a bit-reversed layout and _ntt_cols takes it).
+// fr_cg_ntt: the NTT of every column of x [8, M, cols] (M = 2^log_m points
+// along axis 1, Montgomery planes), natural order in and out; with cb > 0
+// (and stw [8, cols/cb, M], null otherwise) each element is first
+// multiplied by its split twiddle and the output stored transposed, y [8,
+// cols/cb, M, cb] (column j1*cb + b of the input to row j1): the Bailey
+// split's first pass (ops/ntt.py:_ntt_cols).  Design: csrc/ntt.cuh.  One
+// instance a log_m.
 //
-// Design.  A block holds UG_CG_ELEMS = 1024 elements, 32 KB of static
-// shared memory: cols = 1024 / M whole columns (one column at the cap,
-// M = 2^10).  UG_CG_MAX_LOG = 10 is this kernel's own cap, chosen from
-// shared memory: 2^10 points x 32 B = 32 KB fits under the 48 KB static
-// limit and leaves room for two blocks of 512 threads on an SM (the TPU
-// kernel's cap of 2^6 was a Mosaic compiler limit).  Larger transforms are
-// split by ops/ntt.py:_ntt_cols (Bailey), so 2^20 is two launches of
-// 2^10-point columns.  Each of the 512 threads runs one butterfly of each
-// stage with the CIOS product of field.cuh, holding its two outputs in
-// registers across a __syncthreads() so the stage runs in place; the
-// shared planes are limb-major, so the stage's reads are bank-conflict
-// free and its interleaved writes two-way conflicted.
-//
-// Loads: the input is plane-major, so a column's points are CB words
-// apart.  The load loop runs over (limb, point, column) with the column
-// fastest: with several columns per block (M < 1024) neighbouring threads
-// read neighbouring words; at M = 1024 (one column per block) they read
-// words CB apart, so each 4-byte load takes its own 32-byte sector.  The
-// blocks of neighbouring columns run together and read the other words of
-// those sectors, which L2 holds (the 2^20 array is 32 MB), so HBM moves
-// about the array once while L2 moves ~8x that.  This is a first, simple
-// design: the kernel does ~130 multiply-adds per byte and is bound by its
-// multiplies, not by these loads.  Twiddles are read from global memory
-// (the table is 160 KB at the cap; threads of one i share one word).
-// In the MMA build the 16 warps' reduction tiles (~83 KB) come on top of
-// the 32 KB, as dynamic shared memory (one block per SM).
+// Bound on the H100: at [8, 2^10, 2^10] the transform needs 4,097 products
+// a column (by twiddles other than 1: kernels.cg_ntt_products; the kernel
+// makes 4,224, the radix-2 network 5,120), the folded twiddle 1,023 more
+// (row 0 and output 0 take w^0), 264 32-bit multiply-adds each, against
+// 32 MB read and 32 MB written (32 MB more read with the split twiddles):
+// bound by its multiplies, 0.066 ms (0.083 folded), not by its 0.02 ms
+// (0.03) of bytes.
 // ---------------------------------------------------------------------------
-#define UG_CG_MAX_LOG 10
-#define UG_CG_ELEMS (1 << UG_CG_MAX_LOG)
+#if UG_MMA_FIELD
+#define UG_NTT_MIN_BLOCKS 1
+#else
+#define UG_NTT_MIN_BLOCKS (UG_NTT_THREADS >= 512 ? 1 : 512 / UG_NTT_THREADS)
+#endif
 
-__global__ void __launch_bounds__(UG_CG_ELEMS / 2)
-UG_SYM(fr_cg_ntt_k)(const uint32_t* x, const uint32_t* tw, uint32_t* y, int log_m,
-                    int64_t cb, int cols) {
-  __shared__ uint32_t s[8 * UG_CG_ELEMS];
+template <int LOG_N>
+__global__ void __launch_bounds__(UG_NTT_THREADS, UG_NTT_MIN_BLOCKS)
+UG_SYM(fr_cg_ntt_k)(ug::NttArgs a) {
 #if UG_MMA_FIELD
   ug::mma_block_init<ug::FrParams>();
 #endif
-  const int m = 1 << log_m;
-  const int nb = cols * m;                      // elements of this block
-  const int64_t c0 = (int64_t)blockIdx.x * cols;
-  for (int k = threadIdx.x; k < 8 * nb; k += blockDim.x) {
-    const int l = k / nb, e = k - l * nb, j = e / cols, cc = e - j * cols;
-    const int64_t c = c0 + cc;
-    s[k] = c < cb ? x[((int64_t)l * m + j) * cb + c] : 0u;
-  }
-  __syncthreads();
-  const int b = threadIdx.x;
-  // nb / 2 == blockDim.x: every thread has a butterfly (the MMA build needs
-  // all of them at every product)
-  const bool active = UG_MMA_FIELD || b < nb / 2;
-  for (int st = 0; st < log_m; st++) {
-    ug::fe hi, lo;
-    if (active)
-      ug::cg_butterfly(s, tw + (int64_t)st * 8 * (m / 2), nb, m, cols, b, hi, lo);
-    __syncthreads();
-    if (active) ug::cg_store(s, nb, cols, b, hi, lo);
-    __syncthreads();
-  }
-  // position j of a column holds X[bitrev(j)]: store it there
-  for (int k = threadIdx.x; k < 8 * nb; k += blockDim.x) {
-    const int l = k / nb, e = k - l * nb, j = e / cols, cc = e - j * cols;
-    const int64_t c = c0 + cc;
-    const int rj = (int)(__brev((unsigned)j) >> (32 - log_m));
-    if (c < cb) y[((int64_t)l * m + rj) * cb + c] = s[k];
-  }
+  uint32_t* stws = (uint32_t*)ug_own_smem();
+  uint32_t* sdat = stws + 8 * ug::NttShape<LOG_N>::HP;
+  const ug::NttArgs args = a;
+  ug::DevBlock run{(int)threadIdx.x};
+  ug::NttDevRegs regs;
+  ug::ntt_cols_body<LOG_N>(run, regs, args, sdat, stws, blockIdx.x);
 }
 
-extern "C" int UG_SYM(fr_cg_ntt)(const void* x, const void* tw, void* y, int log_m,
-                                 int64_t cb, void* stream) {
-  if (log_m < 1 || log_m > UG_CG_MAX_LOG) return (int)cudaErrorInvalidValue;
-  const int cols = UG_CG_ELEMS >> log_m;
-  const int64_t blocks = (cb + cols - 1) / cols;
+template <int LOG_N>
+static int ug_ntt_smem(int* bytes) {
+  return ug_kernel_smem(UG_SYM(fr_cg_ntt_k)<LOG_N>, UG_NTT_THREADS, bytes,
+                        ug::ntt_smem_bytes<LOG_N>());
+}
+
+template <int LOG_N>
+static int ug_ntt_launch(const ug::NttArgs& a, cudaStream_t stream) {
   int smem;
-  if (int rc = ug_kernel_smem(UG_SYM(fr_cg_ntt_k), UG_CG_ELEMS / 2, &smem)) return rc;
-  UG_SYM(fr_cg_ntt_k)<<<(unsigned)blocks, UG_CG_ELEMS / 2, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint32_t*)tw, (uint32_t*)y, log_m, cb, cols);
+  if (int rc = ug_ntt_smem<LOG_N>(&smem)) return rc;
+  const int64_t cpb = ug::NttShape<LOG_N>::CPB;
+  UG_SYM(fr_cg_ntt_k)<LOG_N><<<(unsigned)((a.cols + cpb - 1) / cpb), UG_NTT_THREADS,
+                               smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int LOG_N>
+static int ug_ntt_info(int* regs, int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes at;
+  if (cudaError_t rc = cudaFuncGetAttributes(&at, UG_SYM(fr_cg_ntt_k)<LOG_N>))
+    return (int)rc;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  int smem;
+  if (int rc = ug_ntt_smem<LOG_N>(&smem)) return rc;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, UG_SYM(fr_cg_ntt_k)<LOG_N>, UG_NTT_THREADS, smem);
+}
+
+#define UG_NTT_CASES(F, ...)                                                  \
+  switch (log_m) {                                                            \
+    case 1: return F<1>(__VA_ARGS__);                                         \
+    case 2: return F<2>(__VA_ARGS__);                                         \
+    case 3: return F<3>(__VA_ARGS__);                                         \
+    case 4: return F<4>(__VA_ARGS__);                                         \
+    case 5: return F<5>(__VA_ARGS__);                                         \
+    case 6: return F<6>(__VA_ARGS__);                                         \
+    case 7: return F<7>(__VA_ARGS__);                                         \
+    case 8: return F<8>(__VA_ARGS__);                                         \
+    case 9: return F<9>(__VA_ARGS__);                                         \
+    case 10: return F<10>(__VA_ARGS__);                                       \
+  }                                                                           \
+  return (int)cudaErrorInvalidValue
+
+extern "C" int UG_SYM(fr_cg_ntt)(const void* x, const void* tw, const void* stw, void* y,
+                                 int log_m, int64_t cols, int64_t cb, void* stream) {
+  if ((stw != nullptr) != (cb > 0)) return (int)cudaErrorInvalidValue;
+  const ug::NttArgs a{(const uint32_t*)x, (const uint32_t*)tw, (const uint32_t*)stw,
+                      (uint32_t*)y, cols, cb};
+  UG_NTT_CASES(ug_ntt_launch, a, (cudaStream_t)stream);
+}
+
+// Registers, local (stack and spill) bytes a thread and resident blocks per
+// SM of the instance for 2^log_m points.
+extern "C" int UG_SYM(fr_cg_ntt_info)(int log_m, int* regs, int* local_bytes,
+                                      int* blocks_per_sm) {
+  UG_NTT_CASES(ug_ntt_info, regs, local_bytes, blocks_per_sm);
 }

@@ -7,6 +7,7 @@
 // place of the tensor-core tile products.
 #include <vector>
 
+#include "ntt.cuh"
 #include "reduce.cuh"
 
 // The reduction's tail and the window combine: each block's program
@@ -149,17 +150,43 @@ extern "C" int ugh_fr_butterfly(void* a, const void* tw, int64_t n,
   return 0;
 }
 
-// one stage of fr_cg_ntt over [8][m][cols] planes, out of place
-extern "C" int ugh_fr_cg_stage(const void* in, void* out, const void* tw,
-                               int64_t m, int64_t cols) {
-  const int64_t n = m * cols;
-  for (int64_t b = 0; b < n / 2; b++) {
-    ug::fe hi, lo;
-    ug::cg_butterfly((const uint32_t*)in, (const uint32_t*)tw, n, m, cols, b,
-                     hi, lo);
-    ug::cg_store((uint32_t*)out, n, cols, b, hi, lo);
+// fr_cg_ntt: each block's program (ntt.cuh) with every phase run for each
+// thread index in turn, the kernel's blocks one after another.
+struct NttHostRegs {
+  std::vector<ug::fe> v;
+  ug::fe* operator()(int tid) { return &v[8 * tid]; }
+};
+
+template <int LOG_N>
+int host_ntt(const ug::NttArgs& a) {
+  using S = ug::NttShape<LOG_N>;
+  std::vector<uint32_t> stws(8 * S::HP), sdat(8 * S::N * S::CPB);
+  NttHostRegs regs{std::vector<ug::fe>(8 * UG_NTT_THREADS)};
+  for (int64_t blk = 0; blk * S::CPB < a.cols; blk++) {
+    ug::HostBlock run{UG_NTT_THREADS};
+    ug::ntt_cols_body<LOG_N>(run, regs, a, sdat.data(), stws.data(), blk);
   }
   return 0;
+}
+
+extern "C" int ugh_fr_cg_ntt(const void* x, const void* tw, const void* stw, void* y,
+                             int log_m, int64_t cols, int64_t cb) {
+  if ((stw != nullptr) != (cb > 0)) return -1;
+  const ug::NttArgs a{(const uint32_t*)x, (const uint32_t*)tw, (const uint32_t*)stw,
+                      (uint32_t*)y, cols, cb};
+  switch (log_m) {
+    case 1: return host_ntt<1>(a);
+    case 2: return host_ntt<2>(a);
+    case 3: return host_ntt<3>(a);
+    case 4: return host_ntt<4>(a);
+    case 5: return host_ntt<5>(a);
+    case 6: return host_ntt<6>(a);
+    case 7: return host_ntt<7>(a);
+    case 8: return host_ntt<8>(a);
+    case 9: return host_ntt<9>(a);
+    case 10: return host_ntt<10>(a);
+  }
+  return -1;
 }
 
 extern "C" int ugh_fq_mont_mul(const void* a, const void* b, void* out, int64_t n) {

@@ -54,6 +54,7 @@
 // (an idle thread a discarded one), and a team's doubling branch is always
 // computed and selected, as in the CIOS build.
 #pragma once
+#include "block.cuh"
 #include "curve.cuh"
 
 // A device function kept out of line: one copy of the team ops' product
@@ -385,51 +386,6 @@ UG_HD_CALL typename F::E team_result(int op, bool guard_inf, int k,
   if (p_inf) out = s.q[k];
   return out;
 }
-
-// ---------------------------------------------------------------------------
-// Block programs.  A kernel body is a sequence of phases; in a phase every
-// thread of the block runs the same function of its thread index, then the
-// warp (warp()) or the block (block()) synchronises.  On the device
-// (DevBlock) that is the thread itself and __syncwarp / __syncthreads; the
-// host harness (HostBlock) runs the phase for every thread index in turn,
-// which is the same computation because no phase reads what another thread
-// writes in it.
-// ---------------------------------------------------------------------------
-struct DevBlock {
-  int tid;
-  // the block's first warp, which runs a chain alone (the other warps of
-  // its SM sub-partitions would share their integer pipes with it)
-  UG_HD bool in_lead() const { return tid < 32; }
-  UG_HD DevBlock lead() const { return *this; }
-  template <class Fn>
-  UG_HD void warp(Fn&& f) {
-    f(tid);
-#if defined(__CUDA_ARCH__)
-    __syncwarp();
-#endif
-  }
-  template <class Fn>
-  UG_HD void block(Fn&& f) {
-    f(tid);
-#if defined(__CUDA_ARCH__)
-    __syncthreads();
-#endif
-  }
-};
-
-struct HostBlock {
-  int threads;
-  bool in_lead() const { return true; }
-  HostBlock lead() const { return HostBlock{threads < 32 ? threads : 32}; }
-  template <class Fn>
-  void warp(Fn&& f) {
-    for (int t = 0; t < threads; t++) f(t);
-  }
-  template <class Fn>
-  void block(Fn&& f) {
-    for (int t = 0; t < threads; t++) f(t);
-  }
-};
 
 // Every team makes one operation on the operands already in its slots;
 // thread t < 4 of a team passes coordinate t of the result to

@@ -128,7 +128,8 @@ _I32 = ctypes.c_int32
 _SIGNATURES = {
     "ug_fr_mont_mul": [_P, _P, _P, _I64, _I64, _P],
     "ug_fr_butterfly": [_P, _P, _I64, _I64, _P],
-    "ug_fr_cg_ntt": [_P, _P, _P, ctypes.c_int, _I64, _P],
+    "ug_fr_cg_ntt": [_P, _P, _P, _P, ctypes.c_int, _I64, _I64, _P],
+    "ug_fr_cg_ntt_info": [ctypes.c_int, _P, _P, _P],
     "ug_fq_mont_mul": [_P, _P, _P, _I64, _P],
     "ug_fq_chain": [_P, _P, _P, _I64, _I32, _P],
 }
@@ -161,6 +162,16 @@ def drain_info(mode: str = "cios") -> dict:
             raise RuntimeError(f"{g}_bucket_drain ({mode}): CUDA error {rc}")
         out[g] = tuple(v.value for v in vals)
     return out
+
+
+def ntt_info(mode: str, log_m: int) -> tuple:
+    """(registers, local bytes a thread, resident blocks per SM) of the
+    `mode` build's fr_cg_ntt instance for columns of 2^log_m points."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    rc = load(mode)["ug_fr_cg_ntt_info"](log_m, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"fr_cg_ntt ({mode}): CUDA error {rc}")
+    return tuple(v.value for v in vals)
 
 
 REDUCE_KINDS = ("reduce_step", "reduce_tail", "window_combine")

@@ -223,9 +223,9 @@ def fr_butterfly(a: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
 # -- fr_cg_ntt -------------------------------------------------------------------
 
 CG_MAX_LOG = 10
-"""The largest column `fr_cg_ntt` takes, 2^10 points: one column of 32 B
-elements fills the kernel's 32 KB of static shared memory (csrc/
-fr_kernels.cu).  `ops/ntt.py:_ntt_cols` splits larger transforms."""
+"""The longest column `fr_cg_ntt` takes, 2^10 points: 128 threads of 8
+points, 32 KB of a block's exchange buffer (csrc/ntt.cuh).
+`ops/ntt.py:_ntt_cols` splits larger transforms."""
 
 
 def bitrev_perm(log_n: int) -> torch.Tensor:
@@ -236,6 +236,21 @@ def bitrev_perm(log_n: int) -> torch.Tensor:
     for b in range(log_n):
         rev |= ((idx >> b) & 1) << (log_n - 1 - b)
     return rev
+
+
+def cg_exponents(log_m: int) -> list:
+    """[log_m] int64 tensors [M/2]: stage s's twiddle of butterfly i is
+    w^e[s][i], e = (sigma_s(i) mod 2^s) * (M >> (s + 1)), with sigma_0 =
+    bitrev, sigma_(s+1)(2i) = sigma_s(i), sigma_(s+1)(2i+1) = sigma_s(i +
+    M/2): the index bookkeeping of the constant-geometry schedule (the JAX
+    package's `_cg_sigmas` / `_cg_twiddles`).  Every e < M/2."""
+    m = 1 << log_m
+    sig = bitrev_perm(log_m)
+    out = []
+    for s in range(log_m):
+        out.append((sig[:m // 2] % (1 << s)) * (m >> (s + 1)))
+        sig = torch.stack([sig[:m // 2], sig[m // 2:]], dim=1).reshape(m)
+    return out
 
 
 def cg_stages_plain(x, tws):
@@ -252,32 +267,79 @@ def cg_stages_plain(x, tws):
     return x
 
 
-def fr_cg_ntt_plain(x, tws):
-    log_m = tws.shape[0]
-    rev = bitrev_perm(log_m).to(x.device)
-    return cg_stages_plain(x, tws)[:, rev].contiguous()
+def cg_ntt_products(log_m: int, cols: int, cb: int = 0) -> int:
+    """Fr products an `fr_cg_ntt` call of `cols` columns of 2^log_m points
+    needs (its bound counts these): each pass of radix R = 2^B (B = 3 but
+    the last) twiddles R - 1 of every R points but those whose twiddles
+    are all w^0 (1/Ns of them, Ns the earlier passes' span; the first
+    pass's all) and runs an R-point DFT of 5 (R = 8), 1 (4) or 0 (2)
+    products; with cb > 0 the folded split twiddle w^(k*j1), one a point
+    but row j1 = 0 and output k = 0."""
+    m, done, n = 1 << log_m, 0, 0
+    while done < log_m:
+        b = min(3, log_m - done)
+        r, ns = 1 << b, 1 << done
+        n += (r - 1) * (m // r) * (ns - 1) // ns + (m // r) * {8: 5, 4: 1, 2: 0}[r]
+        done += b
+    return n * cols + ((cols // cb - 1) * (m - 1) * cb if cb else 0)
 
 
-def fr_cg_ntt(x: torch.Tensor, tws: torch.Tensor) -> torch.Tensor:
-    """NTT of every column of x [8, M, CB] (M = 2^log_m points along axis
-    1, Montgomery planes, canonical) with the constant-geometry twiddles
-    tws [log_m, 8, M/2]: all log_m stages, then the bit reversal, so the
-    output [8, M, CB] is in NATURAL order.  1 <= log_m <= CG_MAX_LOG."""
-    log_m = tws.shape[0]
-    if not 1 <= log_m <= CG_MAX_LOG:
-        raise ValueError(f"fr_cg_ntt: 2^{log_m} points per column; the "
-                         f"kernel takes 2^1 .. 2^{CG_MAX_LOG}")
-    m = 1 << log_m
-    if x.dim() != 3 or x.shape[:2] != (8, m) or tws.shape[1:] != (8, m // 2):
+def _cg_shapes(x, tw, stw, cb):
+    """log_m of a valid fr_cg_ntt call, else ValueError."""
+    m = x.shape[1] if x.dim() == 3 else 0
+    log_m = m.bit_length() - 1
+    if not 1 <= log_m <= CG_MAX_LOG or m != 1 << log_m:
+        raise ValueError(f"fr_cg_ntt: {m} points per column; the kernel takes "
+                         f"2^1 .. 2^{CG_MAX_LOG}")
+    cols = x.shape[2]
+    if (x.shape[0] != 8 or tuple(tw.shape) != (8, m // 2) or cb < 0
+            or (stw is None) != (cb == 0) or (cb and (
+                cols % cb or tuple(stw.shape) != (8, cols // cb, m)))):
         raise ValueError(f"fr_cg_ntt: shapes {tuple(x.shape)}, "
-                         f"{tuple(tws.shape)}")
+                         f"{tuple(tw.shape)}, "
+                         f"{None if stw is None else tuple(stw.shape)}, cb {cb}")
+    return log_m
+
+
+def fr_cg_ntt_plain(x, tw, stw=None, cb: int = 0):
+    """`fr_cg_ntt` by the constant-geometry network (its twiddles gathered
+    from tw), the bit reversal, and for the split's first pass
+    `fr_mont_mul_plain` by the split twiddles and a permute."""
+    log_m = _cg_shapes(x, tw, stw, cb)
+    tws = torch.stack([tw[:, e.to(tw.device)] for e in cg_exponents(log_m)])
+    rev = bitrev_perm(log_m).to(x.device)
+    y = cg_stages_plain(x, tws)[:, rev]
+    if not cb:
+        return y.contiguous()
+    m, m1 = x.shape[1], x.shape[2] // cb
+    y = fr_mont_mul_plain(y.reshape(8, m, m1, cb), stw.permute(
+        0, 2, 1)[..., None].expand(8, m, m1, cb))
+    return y.permute(0, 2, 1, 3).contiguous()
+
+
+def fr_cg_ntt(x: torch.Tensor, tw: torch.Tensor, stw: torch.Tensor | None = None,
+              cb: int = 0) -> torch.Tensor:
+    """NTT of every column of x [8, M, C] (M = 2^log_m points along axis
+    1, Montgomery planes, canonical; 1 <= log_m <= CG_MAX_LOG), natural
+    order in and out, with w the primitive M-th root whose powers
+    w^0 .. w^(M/2-1) tw [8, M/2] holds (its inverse for the inverse
+    transform).  cb == 0 (stw None): the output is [8, M, C].  cb > 0
+    (C = M1 * cb, stw [8, M1, M]): the Bailey split's first pass, each
+    output k of input column j1*cb + b multiplied by stw[:, j1, k] and
+    stored transposed, to [8, M1, M, cb] row j1."""
+    log_m = _cg_shapes(x, tw, stw, cb)
     if not _on_cuda(x):
-        return fr_cg_ntt_plain(x, tws)
+        return fr_cg_ntt_plain(x, tw, stw, cb)
     _check(x, torch.int32, name="x")
-    _check(tws, torch.int32, name="tws")
-    out = torch.empty_like(x)
-    _launch("fr_cg_ntt", "ug_fr_cg_ntt", x.data_ptr(), tws.data_ptr(),
-            out.data_ptr(), log_m, x.shape[2])
+    _check(tw, torch.int32, name="tw")
+    if cb:
+        _check(stw, torch.int32, name="stw")
+    m, cols = x.shape[1], x.shape[2]
+    out = torch.empty((8, cols // cb, m, cb) if cb else x.shape,
+                      dtype=x.dtype, device=x.device)
+    _launch("fr_cg_ntt", "ug_fr_cg_ntt", x.data_ptr(), tw.data_ptr(),
+            None if stw is None else stw.data_ptr(), out.data_ptr(), log_m,
+            cols, cb)
     return out
 
 

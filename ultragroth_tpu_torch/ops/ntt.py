@@ -6,10 +6,10 @@ The twin of the JAX package's `ops/ntt.py`, in both of its modes
   * `base` (`ntt`): a bit-reversal gather, then one `fr_butterfly` kernel
     launch per DIT stage, applied in place;
   * `fast` (`ntt_fast`): the Bailey split of `_ntt_cols` down to columns
-    of at most 2^CG_MAX_LOG points, each transformed whole by ONE
-    `fr_cg_ntt` launch (the constant-geometry network in shared memory,
-    natural order out), with the split's twiddle product through
-    `fr_mont_mul` and its transposes as `permute(...).contiguous()`.
+    of at most 2^CG_MAX_LOG points, each axis transformed whole by ONE
+    `fr_cg_ntt` launch (natural order out), the split's twiddle product
+    and transpose folded into the first: a 2^20 transform is two launches
+    and nothing between them.
 
 The 1/n scale of the inverse goes through `fr_mont_mul`.  Values stay in
 the Montgomery domain end to end.  The default mode is `fast` on a CUDA
@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 
 from ..constants import FR_MODULUS
@@ -63,28 +62,13 @@ def ntt_mode(device, mode: str | None = None) -> str:
     return mode
 
 
-def _cg_sigmas(log_m: int) -> list:
-    """sigma_1 = bitrev, sigma_{s+1}(2i) = sigma_s(i), sigma_{s+1}(2i+1) =
-    sigma_s(i + M/2): the index bookkeeping of the constant-geometry
-    schedule (the JAX package's `_cg_sigmas`)."""
-    m = 1 << log_m
-    sig = kernels.bitrev_perm(log_m).numpy()
-    out = [sig]
-    for _ in range(log_m):
-        nxt = np.zeros(m, np.int64)
-        nxt[0::2] = sig[:m // 2]
-        nxt[1::2] = sig[m // 2:]
-        out.append(nxt)
-        sig = nxt
-    return out
-
-
 class Domain:
     """Per-(log_n, device) constants of the NTT and the quotient:
     per-stage twiddles of both directions, 1/n, the odd-coset powers
     w_2n^i and H_SCALE (the twin of the JAX package's lru-cached tables);
-    the fast mode's constant-geometry and Bailey-split twiddles are made
-    on first use and kept (`cg_twiddles`, `split_twiddles`)."""
+    the fast mode's twiddles (`ntt_twiddles`, the Bailey split's
+    `split_twiddles`; `cg_twiddles`, the constant-geometry network's, for
+    the plain version) are made on first use and kept."""
 
     def __init__(self, log_n: int, device="cuda"):
         F = fr()
@@ -92,7 +76,7 @@ class Domain:
         self.device = torch.device(device)
         dtype = limb_dtype(device)
         n = 1 << log_n
-        self._cg: dict = {}
+        self._pow: dict = {}
         self._split: dict = {}
         self.bitrev = kernels.bitrev_perm(log_n).to(self.device)
         self.twiddles = {}
@@ -111,29 +95,31 @@ class Domain:
         # scale and leaves standard form (protocol/quotient.py)
         self.h_scale = F.const(H_SCALE, (1,), device, dtype)
 
-    def cg_twiddles(self, log_m: int, inverse: bool) -> torch.Tensor:
-        """[log_m, 8, M/2] Montgomery twiddles of the constant-geometry
-        network: tw_s[i] = w^((sigma_s(i) mod 2^(s-1)) * (M >> s)), w the
-        2^log_m-th root (its inverse for the inverse transform)."""
+    def ntt_twiddles(self, log_m: int, inverse: bool) -> torch.Tensor:
+        """[8, M/2] Montgomery planes of w^0 .. w^(M/2-1), w the 2^log_m-th
+        root (its inverse for the inverse transform): `fr_cg_ntt`'s
+        table."""
         key = (log_m, inverse)
-        if key not in self._cg:
-            m = 1 << log_m
+        if key not in self._pow:
             w = root_of_unity(log_m)
             if inverse:
                 w = pow(w, -1, FR_MODULUS)
-            sig = _cg_sigmas(log_m)
-            base = _powers(w, m, self.device)              # w^0 .. w^(m-1)
-            tables = []
-            for s in range(1, log_m + 1):
-                exps = (sig[s - 1][:m // 2] % (1 << (s - 1))) * (m >> s)
-                tables.append(base[:, torch.from_numpy(exps).to(self.device)])
-            self._cg[key] = torch.stack(tables).contiguous()
-        return self._cg[key]
+            self._pow[key] = _powers(w, 1 << (log_m - 1), self.device)
+        return self._pow[key]
+
+    def cg_twiddles(self, log_m: int, inverse: bool) -> torch.Tensor:
+        """[log_m, 8, M/2] Montgomery twiddles of the constant-geometry
+        network: tw_s[i] = w^((sigma_s(i) mod 2^(s-1)) * (M >> s))."""
+        tw = self.ntt_twiddles(log_m, inverse)
+        return torch.stack([tw[:, e.to(self.device)]
+                            for e in kernels.cg_exponents(log_m)])
 
     def split_twiddles(self, log_m2: int, log_m1: int,
                        inverse: bool) -> torch.Tensor:
-        """w_M^(k2 * j1) as Montgomery planes [8, M2, M1] for the Bailey
-        split of an M = M1 * M2 point transform."""
+        """w_M^(k2 * j1) as Montgomery planes [8, M2, M1], M = M1 * M2 (the
+        JAX package's `_split_twiddles`).  The split of an M-point
+        transform takes it as split_twiddles(log_m1, log_m2): row j1,
+        column k2, the layout of its first pass's transposed output."""
         key = (log_m2, log_m1, inverse)
         if key not in self._split:
             m1, m2 = 1 << log_m1, 1 << log_m2
@@ -170,23 +156,21 @@ def ntt(a: torch.Tensor, dom: Domain, inverse: bool = False) -> torch.Tensor:
 def _ntt_cols(h: torch.Tensor, log_m: int, inverse: bool,
               dom: Domain) -> torch.Tensor:
     """NTT along axis 1 of [8, M, CB] Montgomery planes, natural order in
-    and out, batched over the trailing column axis (the JAX package's
-    `_ntt_cols`).  Columns of at most 2^CG_MAX_LOG points go to one
-    `fr_cg_ntt` launch; a longer axis is split M = M2 * M1 (j = j2*M1 + j1,
-    k = k1*M2 + k2): NTT over j2, twiddle w_M^(k2*j1), transpose, NTT over
-    j1."""
+    and out, batched over the trailing column axis (the values of the JAX
+    package's `_ntt_cols`).  Columns of at most 2^CG_MAX_LOG points go to
+    one `fr_cg_ntt` launch; a longer axis is split M = M2 * M1 (j = j2*M1
+    + j1, k = k1*M2 + k2) with M2 <= 2^CG_MAX_LOG: one launch makes the
+    NTT over j2, the twiddle w_M^(k2*j1) and the transpose to [8, M1, M2,
+    CB]; the NTT over j1 follows."""
     if log_m <= kernels.CG_MAX_LOG:
-        return kernels.fr_cg_ntt(h.contiguous(),
-                                 dom.cg_twiddles(log_m, inverse))
-    log_m1 = min(kernels.CG_MAX_LOG, log_m - 1)
-    log_m2 = log_m - log_m1
+        return kernels.fr_cg_ntt(h.contiguous(), dom.ntt_twiddles(log_m, inverse))
+    log_m2 = min(kernels.CG_MAX_LOG, log_m - 1)
+    log_m1 = log_m - log_m2
     m1, m2 = 1 << log_m1, 1 << log_m2
     cb = h.shape[2]
-    v = _ntt_cols(h.reshape(L, m2, m1 * cb), log_m2, inverse, dom)
-    tw = dom.split_twiddles(log_m2, log_m1, inverse)          # [8, M2, M1]
-    v = kernels.fr_mont_mul(v.reshape(L, m2, m1, cb),
-                            tw[..., None].expand(L, m2, m1, cb).contiguous())
-    v = v.permute(0, 2, 1, 3).contiguous()                    # [8, M1, M2, CB]
+    v = kernels.fr_cg_ntt(h.contiguous().reshape(L, m2, m1 * cb),
+                          dom.ntt_twiddles(log_m2, inverse),
+                          dom.split_twiddles(log_m1, log_m2, inverse), cb)
     v = _ntt_cols(v.reshape(L, m1, m2 * cb), log_m1, inverse, dom)
     return v.reshape(L, m1 * m2, cb)
 
