@@ -56,6 +56,23 @@ row's `folded` object), phase 4 times the 2^20 quotient in both NTT modes, and p
 launches a prove and a fast quotient's `fr_mont_mul` launches equal to
 the base one's (no split-twiddle product).
 
+The per-key point chains are one launch each, ending in a batch
+to-affine inside the kernel: the device set-up's fixed-base ladder
+(`curve_fixed_base_mul`, one launch a set-up run) and the fixed-base
+tables' windows (`curve_window_table`, one launch a point set).  Phase 1
+prints their registers, spills and blocks per SM; phase 2 holds them equal
+to their plain versions (the ladder at 2^16 + 37 lanes of the set-up's
+window table, the table at c = 17 on 4,072 of the 2^20 key's points, with
+the edge lanes: zero scalars, zero bytes, r - 1, points at infinity, a
+block all at infinity, a ragged last block) and times them at 2^20 lanes;
+phase 4b drives the table build as its own path (`fixed_tables_2^20`),
+prints its seconds by set and group and checks sampled rows against the
+key's known logs; phase 6 drives the UltraGroth set-up as its own path
+(`ultragroth_setup_2^20`); phase 7 checks one ladder launch a non-empty
+set-up run, one window-table launch a point set and no `add_where` on the
+table build, and that no driven path ran the plain `CurveOps.to_affine`
+on the card.
+
 One line per phase (name, seconds, pass/fail) is printed as each phase
 ends; before the last line come one JSON object with every kernel's
 launches (their sum over the driven paths in `launches`, each path's own
@@ -116,6 +133,8 @@ MMA_IMAD = 128
 MMA_U8_OPS = 2 * 3072
 INT8_OPS_PER_S = 1.979e15
 FIXED_MSM_MB = "8000"      # all five 2^20 tables: 4 x 1.01 GB G1 + 2.01 GB G2
+FB_CHECK_LANES = (1 << 16) + 37   # the ladder held against its plain version
+WT_CHECK_LANES = 4096 - 24  # the window table held against its plain version
 DRAIN_CHECK_STEPS = 8      # the bucket drain held against its plain version
 DRAIN_TIME_STEPS = 256     # the bucket drain timed
 # the TPU kernel of the drain's exceptional steps (its KERNELS entry names
@@ -128,6 +147,11 @@ PATH_MSMS = {"groth16_2^20": (4, 1), "groth16_2^20_base": (4, 1),
 # each driven path's MSM windows: path -> (G1 c's, G2 c's, fixed-base),
 # filled as the paths run (`msm_windows`)
 PATH_WINDOWS = {}
+# the device set-up's fixed-base runs (G1, G2): one ladder launch each
+FB_RUNS = {}
+# the point sets of the 2^20 Groth16 fixed-base tables (G1, G2): one
+# window-table launch each
+TABLE_SETS = {"fixed_tables_2^20": (4, 1)}
 FQ_CHAIN_STEPS = 4096      # the Fq product's latency: a chain this long
 # dependent product rounds: a complete add, a doubling, a drain step
 ADD_DEPTH, DBL_DEPTH, STEP_DEPTH = 4, 3, 4
@@ -291,6 +315,29 @@ def known_log_sum(scalars, spec):
     return (o * total_o + a * total_a + b * total_b) % R
 
 
+def key_specs(seed, log_n=LOG_N):
+    """synthetic_zkey's draws from its seed: the witness's first value and
+    each section's spec (group, o, a, b, n), point i = k_i * G with k_i =
+    o + a*m^2 + b*j^2 (i = 1024 m + j)."""
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    domain = 1 << log_n
+    n_vars = domain - 6
+    rng = random.Random(seed)
+    v0 = rng.randrange(2, R)
+    sizes = {"a": ("g1", n_vars), "b1": ("g1", n_vars), "b2": ("g2", n_vars),
+             "c": ("g1", n_vars - 2), "h": ("g1", domain)}
+    return v0, {name: (group, rng.randrange(1, R), rng.randrange(1, 1 << 128),
+                       rng.randrange(1, 1 << 128), n)
+                for name, (group, n) in sizes.items()}
+
+
+def known_log(spec, i):
+    """k_i of section `spec`."""
+    _, o, a, b, _ = spec
+    m, j = divmod(i, 1024)
+    return o + a * m * m + b * j * j
+
+
 def synthetic_zkey(log_n, seed):
     """A Groth16 key for the square chain of 2^log_n - 8 constraints whose
     base points are known multiples of the generators (`section_points`).
@@ -305,19 +352,14 @@ def synthetic_zkey(log_n, seed):
     domain = 1 << log_n
     n_c = domain - 8
     n_vars = n_c + 2
-    rng = random.Random(seed)
-    vals = [rng.randrange(2, R)]
+    v0, specs = key_specs(seed, log_n)
+    vals = [v0]
     for _ in range(n_c):
         vals.append(vals[-1] * vals[-1] % R)
     w = [1, vals[-1]] + vals[:n_c]
     witness = np.frombuffer(b"".join(v.to_bytes(32, "little") for v in w),
                             dtype="<u4").reshape(n_vars, 8).copy()
 
-    sizes = {"a": ("g1", n_vars), "b1": ("g1", n_vars), "b2": ("g2", n_vars),
-             "c": ("g1", n_vars - 2), "h": ("g1", domain)}
-    specs = {name: (group, rng.randrange(1, R), rng.randrange(1, 1 << 128),
-                    rng.randrange(1, 1 << 128), n)
-             for name, (group, n) in sizes.items()}
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(len(specs)) as pool:
         pa, pb1, pb2, pc, ph = pool.map(section_points, specs.values())
@@ -481,7 +523,8 @@ def _kernel_checks(dev, plain, drain_cache):
                3 * 4 * kq * 32 * fold_n + fold_n,
                n_ok * (12 * fq_mul + 2 * fq_sqr))
 
-        madd_valid_checks(group, gen, dev, record, err, plain)
+        fixed_base_checks(group, gen, dev, record, err, drain_cache)
+        window_table_checks(group, gen, dev, record, err, drain_cache)
 
         reduce_checks(group, gen, dev, record, err, plain, drain_cache, lat_ms)
     return results
@@ -699,57 +742,131 @@ def drain_checks(group, gen, dev, record, err, plain, cache, lat_ms):
                latency_floor_ms_a_step=depth * lat_ms)
 
 
-def madd_valid_checks(group, gen, dev, record, err, plain):
-    """curve_madd_valid against its plain version at 2^16 lanes on the
-    device set-up's real window table, with infinity on either side,
-    P == Q and P == -Q among the lanes; timed at 2^20 lanes, the set-up's
-    chunk."""
+def _timed(fn):
+    """(fn(), its ms): one call, the device synchronised around it (the
+    plain versions' times of the chains: one cold call, as slow as they
+    are)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _edge_scalars(n, gen, dev):
+    """Canonical random scalars [8, n] with the CPU tests' edge lanes: 0,
+    1, r - 1, zero bytes in several windows, a lone top byte; every lane
+    of block 1 (lanes 128-255) zero, a block all at infinity."""
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.ops import limbs as lb
+    sc = _rand_field((8, n), R, gen, dev)
+    sc[:, 128:256] = 0
+    edges = [0, 1, R - 1, 0x30 << 248, 1 << 64, 256 ** 31]
+    sc[:, :len(edges)] = lb.ints_to_planes(edges, dev).to(torch.int32)
+    for k in range(8, 40):                 # byte k % 4 of every limb zero:
+        b = k % 4                          # eight windows of zero digits
+        mask = int(np.array(~(0xFF << (8 * b)) & 0xFFFFFFFF, np.uint32)
+                   .view(np.int32))
+        sc[:, k] &= mask
+    return sc.contiguous()
+
+
+def fixed_base_checks(group, gen, dev, record, err, cache):
+    """curve_fixed_base_mul against its plain version (32
+    curve_madd_valid_plain steps and CurveOps.to_affine) on the device
+    set-up's real window table at 2^16 + 37 lanes (a ragged last block),
+    with the edge lanes of `_edge_scalars`; timed at 2^20 lanes, the
+    set-up's runs' width; the plain version timed once at the check's
+    shape (cios pass)."""
     from ultragroth_tpu_torch.constants import FR_MODULUS as R
     from ultragroth_tpu_torch.ops import kernels as K
-    from ultragroth_tpu_torch.ops.curve import curve_ops
-    from ultragroth_tpu_torch.testkit.dsetup import FB_CHUNK, _fb_table
-    ops = curve_ops(group)
+    from ultragroth_tpu_torch.testkit.dsetup import _fb_table
     kq = 1 if group == "g1" else 2
+    table, tinf = _fb_table(group, dev)
+    key = ("fixed_base", group)
+    if key not in cache:
+        sc = _edge_scalars(FB_CHECK_LANES, gen, dev)
+        want, plain_ms = _timed(lambda: K.curve_fixed_base_mul_plain(
+            group, table, tinf, sc))
+        big = _rand_field((8, 1 << LOG_N), R, gen, dev)
+        cache[key] = (sc, want, plain_ms, big)
+    sc, want, plain_ms, big = cache[key]
+    got = K.curve_fixed_base_mul(group, table, tinf, sc)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          f"{group}_fixed_base_mul disagrees with its plain version")
+    check(bool(want[2][128:256].all()) and int(want[2].sum()) == 129,
+          f"{group}: the fixed-base infinity lanes are not the zero scalars")
+    n = big.shape[1]
+    # the work these scalars need: a mixed add of 8 products and 2 squares
+    # for every nonzero byte after a lane's first (from infinity the first
+    # is a select), and the to-affine's ~6 products a lane
+    nz = (big.view(torch.uint8).reshape(8, n, 4) != 0).sum((0, 2))
+    adds = int((nz - 1).clamp(min=0).sum())
     fq_mul = MUL_IMAD * (1 if group == "g1" else 3)
     fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
-    table, tinf = _fb_table(group, dev)
-    n, w = 1 << 16, 5
-    sc = _rand_field((8, n), R, gen, dev)
-    sc[1, 16:48] |= 0x100                  # byte 5 != 0: Q finite
-    sc[1, 48:80] &= ~0xFF00                # byte 5 == 0: Q at infinity
-    acc = ops.inf_xyzz((n,), dev, torch.int32).contiguous()
-    for step in range(w):                  # real partial sums
-        acc = K.curve_madd_valid(group, acc, table, tinf, sc, step)
-    qx, qy, _ = K.fixed_base_gather_plain(table, tinf, sc, w)
-    q = ops.affine_to_xyzz(qx, qy, torch.zeros(n, dtype=torch.bool, device=dev))
-    acc[..., :16] = ops.inf_xyzz((16,), dev, torch.int32)       # P == inf
-    acc[..., 16:32] = q[..., 16:32]                             # P == Q
-    acc[..., 32:48] = ops.neg(q[..., 32:48])                    # P == -Q
-    acc[..., 64:80] = ops.inf_xyzz((16,), dev, torch.int32)     # both inf
-    acc = acc.contiguous()
-    k = K.curve_madd_valid(group, acc, table, tinf, sc, w)
-    p = K.curve_madd_valid_plain(group, acc, table, tinf, sc, w)
-    check(torch.equal(k, p), f"{group}_madd_valid disagrees with its plain "
-          "version")
-    check(bool(ops.is_inf(p[..., 32:48]).all()), f"{group}: P + (-P) != inf")
-    check(not bool(ops.is_inf(p[..., 16:32]).any()), f"{group}: 2P is inf")
-    check(torch.equal(p[..., 48:64], acc[..., 48:64]),
-          f"{group}: P + inf != P")
+    record(f"{group}_fixed_base_mul", err(got[0], want[0]),
+           cuda_time_ms(lambda: K.curve_fixed_base_mul(group, table, tinf, big),
+                        5), plain_ms,
+           32 * n + (2 * kq * 32 + 1) * n + 2 * kq * 32 * 8192 + 8192,
+           adds * (8 * fq_mul + 2 * fq_sqr) + n * 6 * fq_mul,
+           lanes=n, adds=adds, plain_lanes=sc.shape[1])
 
-    big = FB_CHUNK
-    sc_big = _rand_field((8, big), R, gen, dev)
-    acc_big = K.curve_madd_valid(group, ops.inf_xyzz((big,), dev, torch.int32)
-                                 .contiguous(), table, tinf, sc_big, 0)
-    out = torch.empty_like(acc_big)
-    needed = int(((sc_big[0] & 0xFF) != 0).logical_and(
-        ((sc_big[0] >> 8) & 0xFF) != 0).sum())   # both sides finite
-    record(f"{group}_madd_valid", err(k, p),
-           cuda_time_ms(lambda: K.curve_madd_valid(
-               group, acc_big, table, tinf, sc_big, 1, out=out), 20),
-           plain(lambda: K.curve_madd_valid_plain(
-               group, acc_big, table, tinf, sc_big, 1)),
-           2 * 4 * kq * 32 * big + 4 * big + 2 * kq * 32 * 8192 + 8192,
-           needed * (8 * fq_mul + 2 * fq_sqr))
+
+def window_table_checks(group, gen, dev, record, err, cache):
+    """curve_window_table against its plain version (curve_add_where_plain
+    doublings and CurveOps.to_affine a window) at c = 17 (the 2^20
+    tables') on the first 4,072 points of the 2^20 key's A (G1) or B2 (G2)
+    section, a ragged last block, with points at infinity among them
+    (lanes 0-15 and all of block 1); timed at 2^20 lanes (the key's points
+    repeated), the plain version once at the check's shape (cios pass)."""
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.ops.msm import fixed_n_windows
+    c = 17
+    nw = fixed_n_windows(c)
+    kq = 1 if group == "g1" else 2
+    e = (2, 8) if group == "g1" else (2, 2, 8)
+    key = ("window_table", group)
+    if key not in cache:
+        n = WT_CHECK_LANES
+        _, specs = key_specs(SEED)
+        _, o, a, b, _ = specs["a" if group == "g1" else "b2"]
+        words = section_points((group, o, a, b, n))
+        base = torch.from_numpy(words.view(np.int32).reshape(n, *e).copy()).to(dev)
+        inf = torch.zeros(n, dtype=torch.bool, device=dev)
+        inf[:16] = True
+        inf[128:256] = True
+        base[inf] = 0
+
+        def table_of(pts):
+            out = torch.zeros((nw * pts.shape[0], *e), dtype=torch.int32,
+                              device=dev)
+            out[:pts.shape[0]] = pts
+            return out
+
+        want, plain_ms = _timed(lambda: K.curve_window_table_plain(
+            group, base, inf, c, table_of(base)))
+        big_n = 1 << LOG_N
+        big = base[~inf].repeat(big_n // int((~inf).sum()) + 1, 1, *([1] * (len(e) - 1)))
+        big = big[:big_n].contiguous()
+        cache[key] = (base, inf, want, plain_ms, big, table_of)
+    base, inf, want, plain_ms, big, table_of = cache[key]
+    got = K.curve_window_table(group, base, inf, c, table_of(base))
+    check(torch.equal(got, want), f"{group}_window_table disagrees with its "
+          "plain version")
+    big_inf = torch.zeros(big.shape[0], dtype=torch.bool, device=dev)
+    out = table_of(big)
+    n = big.shape[0]
+    dbls = (nw - 1) * c * n
+    fq_mul = MUL_IMAD * (1 if group == "g1" else 3)
+    fq_sqr = MUL_IMAD * (1 if group == "g1" else 2)
+    record(f"{group}_window_table", err(got, want),
+           cuda_time_ms(lambda: K.curve_window_table(group, big, big_inf, c,
+                                                     out), 3), plain_ms,
+           2 * kq * 32 * n * nw + n,
+           dbls * (6 * fq_mul + 3 * fq_sqr) + (nw - 1) * n * 6 * fq_mul,
+           lanes=n, c=c, windows=nw, doublings=dbls,
+           plain_lanes=base.shape[0])
+    del out
 
 
 @torch.inference_mode()
@@ -913,13 +1030,15 @@ def ultragroth_full_width(dev, drive):
           flush=True)
     check((1 << LOG_N) // 2 < rows <= 1 << LOG_N, f"domain is not 2^{LOG_N}")
 
-    def setup_and_prove():
-        t0 = time.perf_counter()
-        st = ultragroth_setup_fast(circ.r1cs, circ.round_indexes,
-                                   circ.final_indexes, circ.rand_indx, seed=9)
-        print(f"  device set-up {time.perf_counter() - t0:.2f} s, by part "
-              f"{json.dumps(st.seconds)}; zkey {len(st.zkey_bytes)} bytes",
-              flush=True)
+    t0 = time.perf_counter()
+    st = drive("ultragroth_setup_2^20", lambda: ultragroth_setup_fast(
+        circ.r1cs, circ.round_indexes, circ.final_indexes, circ.rand_indx,
+        seed=9))
+    print(f"  device set-up {time.perf_counter() - t0:.2f} s, by part "
+          f"{json.dumps(st.seconds)}; zkey {len(st.zkey_bytes)} bytes",
+          flush=True)
+
+    def prove_first():
         t0 = time.perf_counter()
         zk = parse_ultragroth_zkey(np.frombuffer(st.zkey_bytes, np.uint8))
         prover = TorchUltraGrothProver(zk)
@@ -934,10 +1053,16 @@ def ultragroth_full_width(dev, drive):
         torch.cuda.synchronize()
         print(f"  first prove {time.perf_counter() - t0:.3f} s "
               f"last_phase_ms {json.dumps(prover.last_phase_ms)}", flush=True)
-        return st, zk, prover, proof, w_final
+        return zk, prover, proof, w_final
 
-    st, zk, prover, proof, w_final = drive("ultragroth_2^20", setup_and_prove)
+    zk, prover, proof, w_final = drive("ultragroth_2^20", prove_first)
     PATH_WINDOWS["ultragroth_2^20"] = msm_windows(prover)
+    # the set-up's fixed-base runs: one a non-empty section (G1: IC, the
+    # random signal's IC, A, B1, round C, final C, H; G2: B2)
+    g1_runs = sum(1 for n in (len(zk.ic), 1, zk.n_vars, zk.n_vars,
+                              len(zk.round_indexes), len(zk.final_indexes),
+                              zk.domain_size) if n)
+    FB_RUNS["ultragroth_setup_2^20"] = (g1_runs, 1)
 
     t0 = time.perf_counter()
     vk = ug.UltraGrothVerificationKey.from_json_dict(st.vk_json)
@@ -1032,28 +1157,70 @@ def mma_field_checks(dev, mma_ms):
     return row
 
 
-def fixed_base_prove(dev, drive, zk, witness, expect, proof_json):
+def _row_point(group, row):
+    """A point-major table row (Montgomery words) -> oracle affine (None
+    at (0, 0), the table's infinity)."""
+    from ultragroth_tpu_torch.constants import FQ_MODULUS as Q
+    rinv = pow(1 << 256, -1, Q)
+    w = row.reshape(-1, 8).cpu().numpy().astype(np.uint32)
+    v = [int.from_bytes(r.tobytes(), "little") * rinv % Q for r in w]
+    if not any(v):
+        return None
+    return (v[0], v[1]) if group == "g1" else ((v[0], v[1]), (v[2], v[3]))
+
+
+def fixed_tables_check(prover, specs, samples=6):
+    """Sampled rows of each 2^20 table against the synthetic key's known
+    logs: row w * Npad + i == k_i * 2^(c*w) * G."""
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.oracle import curve as oc
+    rng = random.Random(SEED)
+    for name, (table, inf, c) in prover.fixed.items():
+        spec = specs[name]
+        group, npad = spec[0], inf.shape[0]
+        mul, gen = ((oc.g1_mul, oc.G1) if group == "g1"
+                    else (oc.g2_mul, oc.G2))
+        nw = table.shape[0] // npad
+        for _ in range(samples):
+            w, i = rng.randrange(1, nw), rng.randrange(spec[4])
+            want = mul(gen, known_log(spec, i) * pow(2, c * w, R) % R)
+            check(_row_point(group, table[w * npad + i]) == want,
+                  f"fixed-base table {name}: row {w} x {npad} + {i} is not "
+                  "its known-log value")
+    print(f"  fixed-base tables: {samples} sampled rows of each of "
+          f"{sorted(prover.fixed)} equal k_i * 2^(c*w) * G", flush=True)
+
+
+def fixed_base_prove(dev, drive, zk, witness, expect, proof_json, specs):
     """The 2^20 Groth16 key of phase 4 with a table for each of its five
-    point sets: the five MSM outputs against their known-log values and
-    the proof against the variable-base proof for the same r, s."""
+    point sets (the build a driven path: `fixed_tables_2^20`): sampled
+    table rows against their known-log values, the five MSM outputs
+    against theirs and the proof against the variable-base proof for the
+    same r, s."""
     from ultragroth_tpu_torch.protocol.prover import (TorchGroth16Prover,
                                                      normalize_outputs)
     from ultragroth_tpu_torch.trace import Tracer
     os.environ["ULTRAGROTH_FIXED_MSM_MB"] = FIXED_MSM_MB
     try:
         t0 = time.perf_counter()
-        prover = TorchGroth16Prover(zk)
-        torch.cuda.synchronize()
+        prover = drive("fixed_tables_2^20", lambda: TorchGroth16Prover(zk))
     finally:
         del os.environ["ULTRAGROTH_FIXED_MSM_MB"]
     check(sorted(prover.fixed) == ["a", "b1", "b2", "c", "h"],
           f"fixed-base tables for {sorted(prover.fixed)} only")
     table_bytes = sum(t.numel() * t.element_size()
                       for t, _, _ in prover.fixed.values())
+    by_set = prover.fixed_seconds_by_set
+    by_group = {g: sum(v for k, v in by_set.items() if specs[k][0] == g)
+                for g in ("g1", "g2")}
     print(f"  fixed-base tables built in {prover.fixed_seconds:.2f} s "
           f"(prover set-up {time.perf_counter() - t0:.2f} s): "
           f"{json.dumps({k: v[2] for k, v in prover.fixed.items()})} "
-          f"(c per set), {table_bytes / 1e9:.3f} GB", flush=True)
+          f"(c per set), {table_bytes / 1e9:.3f} GB; seconds by set "
+          f"{json.dumps({k: round(v, 4) for k, v in by_set.items()})}, by "
+          f"group {json.dumps({k: round(v, 4) for k, v in by_group.items()})}",
+          flush=True)
+    fixed_tables_check(prover, specs)
     t0 = time.perf_counter()
     proof = drive("groth16_2^20_fixed", lambda: prover.prove(
         witness, r=R_BLIND, s=S_BLIND))
@@ -1250,6 +1417,7 @@ def main() -> int:
     from ultragroth_tpu_torch.io.zkey import parse_groth16_zkey
     from ultragroth_tpu_torch.ops import _build, kernels as K
     from ultragroth_tpu_torch.ops import limbs as lb
+    from ultragroth_tpu_torch.ops.curve import CurveOps
     from ultragroth_tpu_torch.ops.ntt import (Domain, quotient_scalars,
                                               scatter_coefs)
     from ultragroth_tpu_torch.oracle import curve as oc
@@ -1263,14 +1431,26 @@ def main() -> int:
 
     paths = {}          # driven path -> its launch counts
     mma_paths = {}      # driven path -> its launches of MMA-built kernels
+    card_to_affine = {}  # driven path -> its CurveOps.to_affine calls on the card
+    plain_to_affine = CurveOps.to_affine
+    affine_calls = [0]
+
+    def counted_to_affine(self, p):
+        affine_calls[0] += p.device.type == "cuda"
+        return plain_to_affine(self, p)
+
+    CurveOps.to_affine = counted_to_affine
 
     def drive(name, fn):
-        """Run one driven path with the launch counts set to 0 just before
-        it and read just after."""
+        """Run one driven path with the launch counts (and the count of
+        plain to-affine calls on the card) set to 0 just before it and
+        read just after."""
         K.reset_launch_counts()
+        affine_calls[0] = 0
         out = fn()
         torch.cuda.synchronize()
         paths[name] = K.launch_counts()
+        card_to_affine[name] = affine_calls[0]
         print(f"  launches [{name}] {json.dumps(paths[name])}", flush=True)
         return out
 
@@ -1303,6 +1483,11 @@ def main() -> int:
             print(f"  [{mode}] fr_cg_ntt (2^{K.CG_MAX_LOG} points a column): "
                   f"{regs} registers, {local} B local memory (stack and "
                   f"spills) a thread, {blocks} blocks per SM", flush=True)
+            for (g, name), (regs, local, blocks) in _build.chain_info(
+                    mode).items():
+                print(f"  [{mode}] {g}_{name}: {regs} registers, {local} B "
+                      f"local memory (stack and spills) a thread, {blocks} "
+                      "blocks of 128 threads per SM", flush=True)
             # the reduction's tail at the fixed-base MSM's 13 arrays of 16
             # lanes (its largest), the combine at 20 windows
             for (g, name), (regs, local, blocks) in _build.reduce_info(
@@ -1420,7 +1605,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with phase("4b_fixed_base_prove"):
-        fixed_base_prove(dev, drive, zk, witness, expect, proof_pinned)
+        fixed_base_prove(dev, drive, zk, witness, expect, proof_pinned, specs)
         del zk, witness
         torch.cuda.empty_cache()
 
@@ -1449,20 +1634,45 @@ def main() -> int:
         total = {k: sum(p[k] for p in paths.values()) for k in K.KERNELS}
         fixed_only = ("g1_add_where", "g2_add_where")
         var_only = ("g1_window_combine", "g2_window_combine")
+        ladders = ("g1_fixed_base_mul", "g2_fixed_base_mul")
+        tables = ("g1_window_table", "g2_window_table")
         prove_kernels = [k for k in K.KERNELS if k not in (
-            "fr_butterfly", "g1_madd_valid", "g2_madd_valid", *fixed_only)]
+            "fr_butterfly", *ladders, *tables, *fixed_only)]
         need = {"groth16_2^20": prove_kernels,
                 "groth16_2^20_base": ["fr_butterfly"],
+                "fixed_tables_2^20": list(tables),
                 "groth16_2^20_fixed": [k for k in prove_kernels
                                        if k not in var_only] + list(fixed_only),
-                "ultragroth_2^20": [k for k in K.KERNELS
-                                    if k not in ("fr_butterfly", *fixed_only)],
+                "ultragroth_setup_2^20": ["fr_mont_mul", *ladders],
+                "ultragroth_2^20": prove_kernels,
                 "ultragroth_2^20_api_mma": prove_kernels}
         for name, kernels in need.items():
             missing = [k for k in kernels if paths[name][k] == 0]
             check(not missing, f"kernels never launched on {name}: {missing}")
-        check(not any("horner" in k for k in K.KERNELS),
-              "a Horner kernel is still registered")
+        check(not any("horner" in k or "madd_valid" in k for k in K.KERNELS),
+              "a Horner or per-step fixed-base kernel is still registered")
+        # the per-key chains: one ladder launch a set-up run, one window
+        # table launch a point set, and no add_where on the table build
+        for name, runs in FB_RUNS.items():
+            got = (paths[name]["g1_fixed_base_mul"],
+                   paths[name]["g2_fixed_base_mul"])
+            check(got == runs, f"{name}: (G1, G2) fixed_base_mul launches "
+                  f"{got}, not one a run {runs}")
+            print(f"  {name}: (G1, G2) fixed_base_mul launches {got}, one a "
+                  "run", flush=True)
+        for name, sets in TABLE_SETS.items():
+            got = (paths[name]["g1_window_table"],
+                   paths[name]["g2_window_table"])
+            adds = paths[name]["g1_add_where"] + paths[name]["g2_add_where"]
+            check(got == sets and adds == 0, f"{name}: (G1, G2) "
+                  f"window_table launches {got} and {adds} add_where, not one "
+                  f"a point set {sets} and none")
+            print(f"  {name}: (G1, G2) window_table launches {got}, one a "
+                  "point set; no add_where", flush=True)
+        on_card = {k: v for k, v in card_to_affine.items() if v}
+        check(not on_card, f"plain CurveOps.to_affine on the card: {on_card}")
+        print(f"  no driven path ran CurveOps.to_affine on the card "
+              f"({len(card_to_affine)} paths)", flush=True)
         for name, msms in PATH_MSMS.items():
             drains = (paths[name]["g1_bucket_drain"],
                       paths[name]["g2_bucket_drain"])

@@ -159,28 +159,62 @@ def test_fr_kernels_match_plain_on_card(dev):
         assert torch.equal(lb.widen(k.cpu()), K.fr_butterfly_plain(a.clone(), tw))
 
 
+def _edge_scalars(n, seed):
+    """Canonical scalars [8, n] (int64 limbs) with the edge lanes: 0, 1,
+    r - 1, a lone top byte, zero bytes in eight windows; lanes 128-255
+    (a block) all zero."""
+    rng = random.Random(seed)
+    s = [rng.randrange(R) for _ in range(n)]
+    s[:5] = [0, 1, R - 1, 0x30 << 248, 1 << 64]
+    for k in range(5, 13):
+        s[k] &= ~sum(0xFF << (8 * w) for w in range(k % 4, 32, 4))
+    s[128:256] = [0] * len(s[128:256])
+    return lb.ints_to_planes(s)
+
+
+@pytest.mark.parametrize("mode", ["cios", "mma"])
 @pytest.mark.parametrize("group", ["g1", "g2"])
-def test_madd_valid_matches_plain_on_card(dev, group):
-    ops = curve_ops(group)
+def test_fixed_base_mul_matches_plain_on_card(dev, mode, group):
+    """The ladder over 300 lanes (three blocks: the edges, all at infinity,
+    ragged) of the device set-up's window table, one launch."""
     table, tinf = _fb_table(group, dev)
-    g = torch.Generator().manual_seed(63)
-    sc = torch.randint(0, 1 << 32, (8, N), generator=g, dtype=torch.int64)
-    sc[1, :8] &= ~0xFF00                       # byte 5 == 0: Q at infinity
-    acc = ops.inf_xyzz((N,), dev, torch.int32).contiguous()
-    for w in range(5):
-        acc = K.curve_madd_valid(group, acc, table, tinf, _cu(sc, dev), w)
-    acc = lb.widen(acc.cpu())
-    qx, qy, _ = K.fixed_base_gather_plain(lb.widen(table.cpu()), tinf.cpu(),
-                                          sc, 5)
-    q = ops.affine_to_xyzz(qx, qy, torch.zeros(N, dtype=torch.bool))
-    acc[..., 8:10] = ops.inf_xyzz((2,))                 # P == inf
-    acc[..., 10:12] = q[..., 10:12]                     # P == Q
-    acc[..., 12:14] = ops.neg(q[..., 12:14])            # P == -Q
-    k = K.curve_madd_valid(group, _cu(acc, dev), table, tinf, _cu(sc, dev), 5)
-    p = K.curve_madd_valid_plain(group, acc, lb.widen(table.cpu()),
-                                 tinf.cpu(), sc, 5)
-    assert torch.equal(lb.widen(k.cpu()), p)
-    assert bool(ops.is_inf(p[..., 12:14]).all())
+    sc = _edge_scalars(300, 63)
+    want = K.curve_fixed_base_mul_plain(group, lb.widen(table.cpu()),
+                                        tinf.cpu(), sc)
+    with K.field_mode(mode):
+        K.reset_launch_counts()
+        got = K.curve_fixed_base_mul(group, table, tinf, _cu(sc, dev))
+        assert K.launch_counts(mode)[f"{group}_fixed_base_mul"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(lb.widen(g.cpu()) if g.dtype != torch.bool
+                           else g.cpu(), w)
+    assert int(want[2].sum()) == 129
+
+
+@pytest.mark.parametrize("mode", ["cios", "mma"])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_window_table_matches_plain_on_card(dev, mode, group):
+    """The window table of 200 points (a ragged second block; points at
+    infinity among them) at c = 17, 14 windows, one launch."""
+    n, c = 200, 17
+    planes = _points(group, n)
+    inf = torch.zeros(n, dtype=torch.bool)
+    inf[[0, 5, 130]] = True
+    base = table_from_planes(planes)
+    base[inf] = 0
+    nw = 15
+    want = torch.zeros((nw * n,) + tuple(base.shape[1:]), dtype=torch.int64)
+    want[:n] = base
+    K.curve_window_table_plain(group, base, inf, c, want)
+    out = torch.zeros_like(want)
+    out[:n] = base
+    out = _cu(out, dev)
+    with K.field_mode(mode):
+        K.reset_launch_counts()
+        got = K.curve_window_table(group, out[:n], inf.to(dev), c, out)
+        assert K.launch_counts(mode)[f"{group}_window_table"] == 1
+    assert torch.equal(lb.widen(got.cpu()), want)
+    assert not bool(want[n:].reshape(nw - 1, n, -1)[:, inf].any())
 
 
 @pytest.mark.parametrize("mode", ["cios", "mma"])
@@ -224,9 +258,11 @@ def test_small_prove_on_card_matches_cpu(dev):
     K.reset_launch_counts()
     on_card = TorchGroth16Prover(zk).prove(w, r=11, s=22)
     # the card's default NTT mode is fast: no per-stage butterflies; the
-    # fixed-base madd belongs to the device set-up; add_where to the
-    # fixed-base tables (the reduction has its own kernel)
-    idle = {"fr_butterfly", "g1_madd_valid", "g2_madd_valid", "g1_add_where",
+    # fixed-base ladder belongs to the device set-up, the window table to
+    # the fixed-base tables' build, add_where to their window folds (the
+    # reduction has its own kernel)
+    idle = {"fr_butterfly", "g1_fixed_base_mul", "g2_fixed_base_mul",
+            "g1_window_table", "g2_window_table", "g1_add_where",
             "g2_add_where"}
     assert {k for k, v in K.launch_counts().items() if v == 0} == idle
     on_cpu = TorchGroth16Prover(zk, device="cpu").prove(w, r=11, s=22)

@@ -151,13 +151,15 @@ def test_port_imports_without_jax():
         "from ultragroth_tpu_torch.ops.ntt import ntt_fast, ntt_mode\n"
         "from ultragroth_tpu_torch.ops.msm import msm_fixed, msm_fixed_table\n"
         "from ultragroth_tpu_torch.ops.kernels import (\n"
-        "    curve_bucket_drain, curve_bucket_drain_plain)\n"
+        "    curve_bucket_drain, curve_bucket_drain_plain,\n"
+        "    curve_fixed_base_mul, curve_window_table)\n"
         "from ultragroth_tpu_torch import convert, keccak, trace\n"
         "from ultragroth_tpu_torch import api, cli, log, runtime, server\n"
         "from ultragroth_tpu_torch.testkit import setup, circuits, dsetup\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import torch_drain_variants, torch_ntt_variants, torch_variants\n"
+        "import torch_chain_variants\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or\n"
         "               m.startswith('ultragroth_tpu.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"

@@ -87,7 +87,7 @@ def _fixed_base_case(group):
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_madd_valid_matches_jax(group):
     acc, table, tinf, scalars = _fixed_base_case(group)
-    out = K.curve_madd_valid(group, acc, table, tinf, scalars, 1)
+    out = K.curve_madd_valid_plain(group, acc, table, tinf, scalars, 1)
     qx, qy, qinf = K.fixed_base_gather_plain(table, tinf, scalars, 1)
     assert qinf.tolist() == [False] * 3 + [True, True] + [False] * (N - 5)
     jout = jk.curve_madd_valid(group)(
@@ -482,10 +482,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         K.curve_bucket_drain("g1", torch.zeros(1, 2, 8, dtype=torch.int64),
                              *(torch.zeros(1, dtype=torch.int32),) * 4, 3, 2)
     with pytest.raises(ValueError):      # the fixed base has 32 windows
-        K.curve_madd_valid("g1", torch.zeros(4, 8, 1, dtype=torch.int64),
-                           torch.zeros(2, 8, 8192, dtype=torch.int64),
-                           torch.zeros(8192, dtype=torch.bool),
-                           torch.zeros(8, 1, dtype=torch.int64), 32)
+        K.curve_fixed_base_mul("g1", torch.zeros(2, 8, 8191, dtype=torch.int64),
+                               torch.zeros(8191, dtype=torch.bool),
+                               torch.zeros(8, 1, dtype=torch.int64))
+    with pytest.raises(ValueError):      # the table's rows: whole windows
+        K.curve_window_table("g1", torch.zeros(4, 2, 8, dtype=torch.int64),
+                             torch.zeros(4, dtype=torch.bool), 3,
+                             torch.zeros(10, 2, 8, dtype=torch.int64))
 
 
 def test_plain_versions_count_no_launches():

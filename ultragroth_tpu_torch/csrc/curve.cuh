@@ -274,24 +274,61 @@ UG_HD void lane_bucket_drain(const uint32_t* acc, uint32_t* out, const int32_t* 
   if (live) store_xyzz<F>(out, n, i, a);
 }
 
-// curve_madd_valid, fused with the fixed-base gather of the device set-up
-// (ultragroth_tpu/testkit/dsetup.py:90-121): step w of the 8-bit windowed
-// fixed-base multiplication.  Lane i takes byte w of its standard-form
-// scalar (limb w/4, bits 8*(w%4)..), entry e = 256*w + byte of the 32 x 256
-// window table, and adds table point e (infinity where tinf[e]) with the
-// complete mixed add.
+// One step of the fixed-base ladder (chains.cuh, curve_fixed_base_mul):
+// a + (qx, qy), Q at infinity where q_inf, equal to madd_unified's xyzz
+// coordinates on every input.  Infinity on either side is a select
+// (madd_unified's order: P at infinity gives Q's xyzz, else Q at infinity
+// gives P); two finite points take the incomplete madd_fast, redone from
+// `a` by the complete add where their x coordinates meet (P == +-Q, which
+// canonical scalars never reach).  The MMA build computes a product where
+// any lane of its warp needs it (drain_vote).
+template <class F>
+UG_HD xyzz<F> fixed_base_step(const xyzz<F>& a, const typename F::E& qx,
+                              const typename F::E& qy, bool q_inf) {
+  using E = typename F::E;
+  const bool p_inf = F::is_zero(a.zz);
+  const bool finite = !p_inf && !q_inf;
+  xyzz<F> s = a;
+  if (drain_vote(finite)) {
+    bool bad;
+    s = madd_fast<F>(a, qx, qy, bad);
+    bad = bad && finite;
+    if (drain_vote(bad)) {
+      const xyzz<F> u = madd_unified<F>(a, qx, qy, q_inf);
+      if (bad) s = u;
+    }
+  }
+  if (q_inf) s = a;
+  if (p_inf) {
+    const E zq = q_inf ? F::zero() : F::one_mont();
+    s = {qx, qy, zq, zq};
+  }
+  return s;
+}
+
+// fixed-base digit w of a lane: byte w of its standard-form scalar (limb
+// w/4, bits 8*(w%4)..), scalars [8][n]
+UG_HD uint32_t fixed_base_digit(const uint32_t* scalars, int64_t n, int64_t i, int w) {
+  return (scalars[(int64_t)(w >> 2) * n + i] >> (8 * (w & 3))) & 0xFFu;
+}
+
+// curve_madd_valid: step w of the 8-bit windowed fixed-base multiplication
+// of the device set-up (ultragroth_tpu/testkit/dsetup.py:90-121), from an
+// accumulator in memory: lane i adds entry e = 256*w + digit of the 32 x
+// 256 window table (infinity where tinf[e]) by the ladder's step.  No
+// kernel launches it (the ladder keeps its accumulator in registers); the
+// g++ harness runs it to hold the step, its exceptional redo included, to
+// curve_madd_valid_plain on accumulators the ladder never meets.
 template <class F>
 UG_HD void lane_madd_valid(const uint32_t* acc, uint32_t* out, const uint32_t* table,
                            const uint8_t* tinf, int64_t T, const uint32_t* scalars,
-                           int w, int64_t n, int64_t i, bool live = true) {
-  xyzz<F> a = load_xyzz<F>(acc, n, i);
-  const uint32_t d = (scalars[(int64_t)(w >> 2) * n + i] >> (8 * (w & 3))) & 0xFFu;
-  const int64_t e = 256 * (int64_t)w + d;
+                           int w, int64_t n, int64_t i) {
+  const xyzz<F> a = load_xyzz<F>(acc, n, i);
+  const int64_t e = 256 * (int64_t)w + fixed_base_digit(scalars, n, i, w);
   typename F::E qx, qy;
   load_elem(table, T, e, 0, qx);
   load_elem(table, T, e, 1, qy);
-  const xyzz<F> s = madd_unified<F>(a, qx, qy, tinf[e] != 0);
-  if (live) store_xyzz<F>(out, n, i, s);
+  store_xyzz<F>(out, n, i, fixed_base_step<F>(a, qx, qy, tinf[e] != 0));
 }
 
 // curve_add_where: out = ok ? a + b : a (ok == nullptr: every lane)

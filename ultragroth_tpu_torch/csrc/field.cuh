@@ -271,6 +271,35 @@ struct Field {
 
   UG_HD static fe sqr(const fe& a) { return mul(a, a); }
   UG_HD static fe exit(const fe& a) { return Pm::kLazy ? canon(a) : a; }
+
+  // The Montgomery-domain inverse by Fermat, a^(p-2): inv(xR) = x^-1 R,
+  // inv(0) = 0; canonical.  Fixed 4-bit windows over the exponent: 14
+  // products for a^2 .. a^15, then 252 squarings and one product a nonzero
+  // window (~60); the window's table lives in local memory.  The exponent
+  // is a constant, so every lane of a warp takes the same products (the
+  // MMA build's lock-step holds).  ~330 dependent products: one chain
+  // serves a whole batch (chains.cuh, affine_epilogue).
+  UG_HD static fe inv(const fe& a) {
+    fe pw[16];
+    pw[0] = one_mont();
+    pw[1] = a;
+#pragma unroll 1
+    for (int i = 2; i < 16; i++) pw[i] = mul(pw[i - 1], a);
+    fe r = pw[exp_nibble(63)];
+#pragma unroll 1
+    for (int k = 62; k >= 0; k--) {
+      r = sqr(sqr(sqr(sqr(r))));
+      const uint32_t e = exp_nibble(k);
+      if (e != 0) r = mul(r, pw[e]);
+    }
+    return canon(r);
+  }
+
+  // nibble k (0: the lowest) of the exponent p - 2 (p's low limb is >= 2)
+  UG_HD static uint32_t exp_nibble(int k) {
+    const uint32_t limb = Pm::p(k >> 3) - (k < 8 ? 2u : 0u);
+    return (limb >> (4 * (k & 7))) & 0xFu;
+  }
 };
 
 using Fr = Field<FrParams>;
@@ -328,6 +357,15 @@ struct Fq2Over {
     return {c0, B::add(t, t)};
   }
   UG_HD static fe2 exit(const fe2& a) { return {B::exit(a.c0), B::exit(a.c1)}; }
+  // a0^2 + a1^2, the norm to Fq: nonzero for a != 0 (-1 is not a square
+  // mod q), so (a0 - a1 u) / norm(a) is the inverse
+  UG_HD static fe norm(const fe2& a) { return B::add(B::sqr(a.c0), B::sqr(a.c1)); }
+  // a / n for the Fq inverse ni of a's norm n: (a0 ni, -a1 ni)
+  UG_HD static fe2 conj_scale(const fe2& a, const fe& ni) {
+    return {B::mul(a.c0, ni), B::neg(B::mul(a.c1, ni))};
+  }
+  // the Montgomery-domain inverse through the norm, inv(0) = 0; canonical
+  UG_HD static fe2 inv(const fe2& a) { return exit(conj_scale(a, B::inv(norm(a)))); }
 };
 
 using Fq2 = Fq2Over<Fq>;

@@ -1,6 +1,7 @@
 // G1 instances of the curve kernels (field Fq); see curve_kernels.inc.
 #define UG_F ug::Fq
 #define UG_DRAIN_F ug::Fq
+#define UG_CHAIN_F ug::FqCall
 #define UG_NAME(x) UG_SYM(g1_##x)
 #include "curve_kernels.inc"
 

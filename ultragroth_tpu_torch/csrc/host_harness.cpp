@@ -7,6 +7,7 @@
 // place of the tensor-core tile products.
 #include <vector>
 
+#include "chains.cuh"
 #include "ntt.cuh"
 #include "reduce.cuh"
 
@@ -119,6 +120,59 @@ int host_window_combine(const void* pts, int64_t W, int c, void* out) {
     return host_window_combine<F>(pts, W, c, out);                            \
   }
 
+// The per-key chains (chains.cuh): each block's program with every phase
+// run for each thread index in turn, the kernels' blocks one after another,
+// each thread's registers one slot of a vector.
+template <class S>
+struct HostRegs {
+  std::vector<S> v;
+  S& operator()(int t) { return v[t]; }
+};
+
+template <class F>
+int host_fixed_base_mul(const void* table, const void* tinf, int64_t T, const void* scalars,
+                        void* out, void* out_inf, int64_t n) {
+  const ug::FixedBaseArgs a{(const uint32_t*)table, (const uint8_t*)tinf, T,
+                            (const uint32_t*)scalars, (uint32_t*)out, (uint8_t*)out_inf, n};
+  std::vector<ug::AffineSmem> sm(1);
+  std::vector<uint32_t> stage(ug::fixed_base_smem_bytes<F>() / 4);
+  HostRegs<ug::ChainLane<F>> regs{std::vector<ug::ChainLane<F>>(ug::kChainThreads)};
+  for (int64_t blk = 0; blk * ug::kChainThreads < n; blk++) {
+    ug::HostBlock run{ug::kChainThreads};
+    ug::fixed_base_body<F>(run, regs, a, sm.data(), stage.data(), blk);
+  }
+  return 0;
+}
+
+template <class F>
+int host_window_table(const void* table, const void* inf, void* out, int64_t npad, int c,
+                      int nw) {
+  const ug::WindowTableArgs a{(const uint32_t*)table, (const uint8_t*)inf, (uint32_t*)out,
+                              npad, c, nw};
+  std::vector<ug::AffineSmem> sm(1);
+  HostRegs<ug::ChainLane<F>> regs{std::vector<ug::ChainLane<F>>(ug::kChainThreads)};
+  for (int64_t blk = 0; blk * ug::kChainThreads < npad; blk++) {
+    ug::HostBlock run{ug::kChainThreads};
+    ug::window_table_body<F>(run, regs, a, sm.data(), blk);
+  }
+  return 0;
+}
+
+// The field's inversion alone (Field::inv / Fq2Over::inv) on [8][n] / [2][8][n]
+// planes: group 1 Fq, 2 Fq2.
+extern "C" int ugh_fq_inv(int group, const void* a, void* out, int64_t n) {
+  for (int64_t i = 0; i < n; i++) {
+    if (group == 1) {
+      ug::store((uint32_t*)out, n, i, 0, ug::Fq::inv(ug::load((const uint32_t*)a, n, i, 0)));
+    } else {
+      ug::fe2 x;
+      ug::load_elem((const uint32_t*)a, n, i, 0, x);
+      ug::store_elem((uint32_t*)out, n, i, 0, ug::Fq2::inv(x));
+    }
+  }
+  return 0;
+}
+
 #define UG_HOST_MADD_VALID(G, F)                                              \
   extern "C" int ugh_##G##_madd_valid(const void* acc, void* out,             \
       const void* table, const void* tinf, int64_t T, const void* scalars,    \
@@ -128,6 +182,14 @@ int host_window_combine(const void* pts, int64_t W, int c, void* out) {
           (const uint32_t*)table, (const uint8_t*)tinf, T,                    \
           (const uint32_t*)scalars, w, n, i);                                 \
     return 0;                                                                 \
+  }                                                                           \
+  extern "C" int ugh_##G##_fixed_base_mul(const void* table, const void* tinf, \
+      int64_t T, const void* scalars, void* out, void* out_inf, int64_t n) {  \
+    return host_fixed_base_mul<F>(table, tinf, T, scalars, out, out_inf, n);  \
+  }                                                                           \
+  extern "C" int ugh_##G##_window_table(const void* table, const void* inf,   \
+      void* out, int64_t npad, int c, int nw) {                               \
+    return host_window_table<F>(table, inf, out, npad, c, nw);                \
   }
 
 UG_HOST_MADD_VALID(g1, ug::Fq)

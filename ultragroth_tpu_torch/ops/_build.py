@@ -138,8 +138,10 @@ for _g in ("g1", "g2"):
         f"ug_{_g}_bucket_drain": [_P, _P, _P, _P, _P, _P, _P, _I32, _I32,
                                   _I64, _P],
         f"ug_{_g}_bucket_drain_info": [_P, _P, _P],
-        f"ug_{_g}_madd_valid": [_P, _P, _P, _P, _I64, _P, ctypes.c_int,
-                                _I64, _P],
+        f"ug_{_g}_fixed_base_mul": [_P, _P, _I64, _P, _P, _P, _I64, _P],
+        f"ug_{_g}_window_table": [_P, _P, _P, _I64, ctypes.c_int,
+                                  ctypes.c_int, _P],
+        f"ug_{_g}_chain_info": [ctypes.c_int, _P, _P, _P],
         f"ug_{_g}_add_where": [_P, _P, _P, _P, _I64, _P],
         f"ug_{_g}_reduce_step": [_P, _I64, _P, _I64, _P, ctypes.c_int, _I64,
                                  _P],
@@ -191,6 +193,24 @@ def reduce_info(mode: str, tail_u: int, tail_arrays: int,
             vals = [ctypes.c_int(0) for _ in range(3)]
             rc = fns[f"ug_{g}_reduce_info"](kind, a, b,
                                              *(ctypes.byref(v) for v in vals))
+            if rc != 0:
+                raise RuntimeError(f"{g}_{name} ({mode}): CUDA error {rc}")
+            out[(g, name)] = tuple(v.value for v in vals)
+    return out
+
+
+CHAIN_KINDS = ("fixed_base_mul", "window_table")
+
+
+def chain_info(mode: str = "cios") -> dict:
+    """{(group, kernel): (registers, local bytes a thread, resident blocks
+    per SM)} of the `mode` build's per-key chain kernels (CHAIN_KINDS)."""
+    fns = load(mode)
+    out = {}
+    for g in ("g1", "g2"):
+        for kind, name in enumerate(CHAIN_KINDS):
+            vals = [ctypes.c_int(0) for _ in range(3)]
+            rc = fns[f"ug_{g}_chain_info"](kind, *(ctypes.byref(v) for v in vals))
             if rc != 0:
                 raise RuntimeError(f"{g}_{name} ({mode}): CUDA error {rc}")
             out[(g, name)] = tuple(v.value for v in vals)

@@ -22,9 +22,11 @@ nothing, as in the JAX package, whose plain path never reaches
 
 Tensor contract (plane-major, see `limbs.py`):
   Fr element batch  [8, *batch]            xyzz G1 [4, 8, n], G2 [4, 2, 8, n]
-  affine table G1   [2, 8, T], G2 [2, 2, 8, T]   (curve_madd_valid)
+  affine table G1   [2, 8, T], G2 [2, 2, 8, T]   (curve_fixed_base_mul's
+                    window table; affine outputs (x, y) the same planes)
   MSM point table G1 [T, 2, 8], G2 [T, 2, 2, 8]  (point-major: the bucket
-                    drain and its plain versions, `curve.table_from_planes`)
+                    drain, curve_window_table and their plain versions,
+                    `curve.table_from_planes`)
   on CUDA the limbs are int32 (u32 bit patterns), every index int32, every
   flag bool; everything contiguous.
 
@@ -56,10 +58,12 @@ for _g in ("g1", "g2"):
     KERNELS.update({
         f"{_g}_bucket_drain": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                                "ultragroth_tpu/ops/kernels.py:102"),
-        f"{_g}_madd_valid": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
-                             "ultragroth_tpu/ops/kernels.py:64"),
+        f"{_g}_fixed_base_mul": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                                 "ultragroth_tpu/ops/kernels.py:64"),
         f"{_g}_add_where": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                             "ultragroth_tpu/ops/kernels.py:171"),
+        f"{_g}_window_table": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
+                               "ultragroth_tpu/ops/kernels.py:171"),
         f"{_g}_bucket_reduce": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
                                 "ultragroth_tpu/ops/kernels.py:171"),
         f"{_g}_window_combine": (f"ultragroth_tpu_torch/csrc/{_g}_kernels.cu",
@@ -460,35 +464,117 @@ def curve_madd_valid_plain(group, acc, table, tinf, scalars, w: int):
     return ops.madd_unified(acc, qx, qy, q_inf)
 
 
-def curve_madd_valid(group: str, acc, table, tinf, scalars, w: int,
-                     out=None):
-    """Complete unsigned mixed add acc + Q (Q at infinity where tinf says),
-    with the fixed-base gather fused: Q = table[256*w + byte w of the
-    lane's scalar].  acc xyzz [4, *elem, n]; table the affine window table
-    [2, *elem, 8192] (Montgomery, 32 windows x 256 digits), tinf [8192]
-    bool; scalars [8, n] standard form; 0 <= w < 32.  `out` may be `acc`."""
-    if not 0 <= w < 32:
-        raise ValueError(f"curve_madd_valid: window {w} not in [0, 32)")
-    if not _on_cuda(acc):
-        res = curve_madd_valid_plain(group, acc, table, tinf, scalars, w)
-        if out is not None:
-            out.copy_(res)
-            res = out
-        return res
-    n = acc.shape[-1]
+FB_WINDOWS = 32
+"""The fixed-base ladder's windows: 8-bit digits of a 256-bit scalar."""
+
+
+def _fb_shapes(group, table, tinf, scalars):
     e = _elem_shape(group)
-    _check(acc, torch.int32, (4, *e, n), "acc")
-    _check(table, torch.int32, name="table")
     t = table.shape[-1]
-    if tuple(table.shape) != (2, *e, t) or t < 256 * (w + 1):
-        raise ValueError(f"table: shape {tuple(table.shape)}")
-    _check(tinf, torch.bool, (t,), "tinf")
+    if (tuple(table.shape) != (2, *e, t) or t < 256 * FB_WINDOWS
+            or tuple(tinf.shape) != (t,) or scalars.dim() != 2
+            or scalars.shape[0] != 8):
+        raise ValueError(f"curve_fixed_base_mul: table {tuple(table.shape)}, "
+                         f"tinf {tuple(tinf.shape)}, scalars "
+                         f"{tuple(scalars.shape)}")
+
+
+def curve_fixed_base_mul_plain(group, table, tinf, scalars):
+    """The FB_WINDOWS steps of `curve_madd_valid_plain` from infinity, then
+    `CurveOps.to_affine`: the per-step path the ladder replaces."""
+    _fb_shapes(group, table, tinf, scalars)
+    ops = curve_ops(group)
+    acc = ops.inf_xyzz((scalars.shape[1],), table.device, table.dtype)
+    for w in range(FB_WINDOWS):
+        acc = curve_madd_valid_plain(group, acc, table, tinf, scalars, w)
+    return ops.to_affine(acc)
+
+
+def curve_fixed_base_mul(group: str, table, tinf, scalars):
+    """The 8-bit windowed fixed-base multiplication of every lane as ONE
+    launch: scalars [8, n] standard form -> sum_w table[256*w + byte w of
+    the scalar] as Montgomery affine (x, y, inf), x and y [*elem, n]
+    canonical ((0, 0) at infinity).  table: the affine window table [2,
+    *elem, T] (Montgomery, entry 256*w + d = d * 256^w * G, T >= 8192),
+    tinf [T] its infinity flags.  Each lane runs its 32 steps with the
+    accumulator in registers and the block ends in one batch inversion
+    (csrc/chains.cuh)."""
+    _fb_shapes(group, table, tinf, scalars)
+    e = _elem_shape(group)
+    n = scalars.shape[1]
+    if n == 0:
+        out = torch.zeros((2, *e, 0), dtype=table.dtype, device=table.device)
+        return out[0], out[1], torch.zeros(0, dtype=torch.bool,
+                                           device=table.device)
+    if not _on_cuda(table):
+        return curve_fixed_base_mul_plain(group, table, tinf, scalars)
+    _check(table, torch.int32, name="table")
+    _check(tinf, torch.bool, name="tinf")
     _check(scalars, torch.int32, (8, n), "scalars")
-    out = torch.empty_like(acc) if out is None else out
-    _check(out, torch.int32, acc.shape, "out")
-    _launch(f"{group}_madd_valid", f"ug_{group}_madd_valid", acc.data_ptr(),
-            out.data_ptr(), table.data_ptr(), tinf.data_ptr(), t,
-            scalars.data_ptr(), w, n)
+    if tinf.data_ptr() % 4:
+        raise ValueError("curve_fixed_base_mul: tinf must be 4-byte aligned")
+    out = torch.empty((2, *e, n), dtype=torch.int32, device=table.device)
+    inf = torch.empty(n, dtype=torch.bool, device=table.device)
+    _launch(f"{group}_fixed_base_mul", f"ug_{group}_fixed_base_mul",
+            table.data_ptr(), tinf.data_ptr(), table.shape[-1],
+            scalars.data_ptr(), out.data_ptr(), inf.data_ptr(), n)
+    return out[0], out[1], inf
+
+
+AFFINE_CHUNK = 1 << 20
+"""Lanes per plain to-affine pass of `curve_window_table_plain`: its int64
+partial products for 2^20 lanes stay within a few GB."""
+
+
+def _wt_shapes(group, table, inf, c, out):
+    e = _elem_shape(group)
+    size = table.shape[0]
+    if (tuple(table.shape) != (size, 2, *e) or size < 1 or c < 1
+            or tuple(inf.shape) != (size,) or tuple(out.shape[1:]) != (2, *e)
+            or out.shape[0] % size):
+        raise ValueError(f"curve_window_table: table {tuple(table.shape)}, "
+                         f"inf {tuple(inf.shape)}, out {tuple(out.shape)}, "
+                         f"c = {c}")
+    return size, out.shape[0] // size
+
+
+def curve_window_table_plain(group, table, inf, c: int, out):
+    """The doublings as `curve_add_where_plain(P, P)` steps and a plain
+    to-affine of each window (in passes of AFFINE_CHUNK lanes): the path
+    the window-table kernel replaces."""
+    size, nw = _wt_shapes(group, table, inf, c, out)
+    ops = curve_ops(group)
+    base = table_planes(table)
+    cur = ops.affine_to_xyzz(base[0], base[1], inf)
+    for w in range(1, nw):
+        for _ in range(c):
+            cur = curve_add_where_plain(group, cur, cur)
+        rows = out[w * size:(w + 1) * size]
+        for a in range(0, size, AFFINE_CHUNK):
+            x, y, _ = ops.to_affine(cur[..., a:a + AFFINE_CHUNK])
+            rows[a:a + AFFINE_CHUNK, 0] = x.movedim(-1, 0)
+            rows[a:a + AFFINE_CHUNK, 1] = y.movedim(-1, 0)
+    return out
+
+
+def curve_window_table(group: str, table, inf, c: int, out):
+    """The fixed-base table's windows as ONE launch: row w * npad + i of
+    the point-major out [nw * npad, 2, *elem] becomes affine 2^(c*w) P_i,
+    (0, 0) at infinity, for w = 1 .. nw - 1, from table [npad, 2, *elem]
+    (P_i, Montgomery affine; it may be out[:npad]) and inf [npad].  Each
+    lane doubles its point c times a window in registers and each window
+    ends in one batch inversion a block (csrc/chains.cuh).  Returns out."""
+    size, nw = _wt_shapes(group, table, inf, c, out)
+    if not _on_cuda(table):
+        return curve_window_table_plain(group, table, inf, c, out)
+    _check(table, torch.int32, name="table")
+    _check(inf, torch.bool, name="inf")
+    _check(out, torch.int32, name="out")
+    if table.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("curve_window_table: rows must be 16-byte aligned")
+    if nw > 1:
+        _launch(f"{group}_window_table", f"ug_{group}_window_table",
+                table.data_ptr(), inf.data_ptr(), out.data_ptr(), size, c, nw)
     return out
 
 

@@ -46,7 +46,7 @@ import torch
 
 from ..constants import FR_MODULUS
 from . import kernels
-from .curve import curve_ops, table_planes
+from .curve import curve_ops
 from .limbs import int_to_limbs, widen
 
 SCALAR_BITS = 254          # BN254 r bit length
@@ -262,11 +262,6 @@ def msm_g2(table, inf, scalars, c: int = 16):
 # the window can be larger (c ~ log2(N) - 2) because only one bucket
 # reduction remains.
 
-AFFINE_CHUNK = 1 << 20
-"""Lanes per plain to-affine pass of the table build: its int64 partial
-products for 2^20 lanes stay within a few GB of device memory."""
-
-
 def fixed_n_windows(c: int) -> int:
     nw = -(-SCALAR_BITS // c)
     if SCALAR_BITS % c == 0:
@@ -289,17 +284,6 @@ def default_fixed_window(n: int) -> int:
     return 10
 
 
-def _to_affine_rows(group: str, pts: torch.Tensor, out: torch.Tensor) -> None:
-    """xyzz [4, *elem, n] -> Montgomery affine into the point-major rows
-    out [n, 2, *elem], infinity as (0, 0), in passes of AFFINE_CHUNK
-    lanes (one host inversion each)."""
-    ops = curve_ops(group)
-    for a in range(0, pts.shape[-1], AFFINE_CHUNK):
-        x, y, _ = ops.to_affine(pts[..., a:a + AFFINE_CHUNK])
-        out[a:a + AFFINE_CHUNK, 0] = x.movedim(-1, 0)
-        out[a:a + AFFINE_CHUNK, 1] = y.movedim(-1, 0)
-
-
 @torch.inference_mode()
 def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
                     c: int | None = None):
@@ -308,11 +292,11 @@ def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
     table [N, 2, *elem] point-major Montgomery affine, inf [N].  N is
     padded to a power of two >= 64 (padding points at infinity).  Returns
     (table [W * Npad, 2, *elem] whose row w * Npad + i is affine
-    2^(c*w) * P_i, inf [Npad], c).  The doublings are `curve_add_where(P,
-    P)` launches (its complete add doubles where both sides are equal);
-    each window's Npad points go to affine straight into their rows.
-    Memory: W * Npad * 64 B for G1, 128 B for G2, one copy."""
-    ops = curve_ops(group)
+    2^(c*w) * P_i, inf [Npad], c).  Windows 1 .. W - 1 are ONE
+    `curve_window_table` launch: each lane doubles its point c times a
+    window in registers, and each window's rows go to affine inside the
+    kernel, straight into the table.  Memory: W * Npad * 64 B for G1, 128
+    B for G2, one copy."""
     n = inf.shape[0]
     if table.shape[0] != n:
         raise ValueError(f"msm_fixed_table: table {tuple(table.shape)}, inf "
@@ -328,12 +312,7 @@ def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
                       dtype=table.dtype, device=dev)
     out[:n] = table
     out[:size][inf] = 0                                   # inf -> (0, 0)
-    base = table_planes(out[:size])
-    cur = ops.affine_to_xyzz(base[0], base[1], inf).contiguous()
-    for w in range(1, nw):
-        for _ in range(c):
-            cur = kernels.curve_add_where(group, cur, cur)
-        _to_affine_rows(group, cur, out[w * size:(w + 1) * size])
+    kernels.curve_window_table(group, out[:size], inf, c, out)
     return out, inf, c
 
 

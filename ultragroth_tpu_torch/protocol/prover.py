@@ -121,7 +121,7 @@ def fixed_table_plan(named_points: dict, budget_bytes: float) -> list:
     return chosen
 
 
-def _build_fixed_tables(**named_points) -> dict:
+def _build_fixed_tables(**named_points) -> tuple:
     """Fixed-base MSM tables for the per-circuit constant point sets
     (`ops/msm.py:msm_fixed_table`), largest first under a memory budget;
     the twin of the JAX package's `protocol/prover.py:92-125`.
@@ -129,19 +129,24 @@ def _build_fixed_tables(**named_points) -> dict:
     Opt-in: ULTRAGROTH_FIXED_MSM_MB is the budget in MB (0 / unset = off:
     a table build costs seconds to minutes at 2^20 and the gain is per
     prove, so it belongs to long-lived provers: the server, library
-    handles).  named_points: name -> (group, (table, inf)).  The bytes
+    handles).  named_points: name -> (group, (table, inf)).  Returns
+    ({name: (table, inf, c)}, {name: seconds of its build}).  The bytes
     counted are the port's own table's: W * Npad points of 64 B (G1) or
     128 B (G2), 32-bit limbs, point-major, half of the JAX layout's 128 /
     256 B."""
     budget = float(os.environ.get("ULTRAGROTH_FIXED_MSM_MB", "0")) * 1e6
     if budget <= 0:
-        return {}
+        return {}, {}
     sizes = {k: (g, pts[1].shape[0]) for k, (g, pts) in named_points.items()}
-    out = {}
+    out, seconds = {}, {}
     for _, name, group, c in fixed_table_plan(sizes, budget):
         table, inf = named_points[name][1]
+        t0 = time.perf_counter()
         out[name] = _msm.msm_fixed_table(group, table, inf, c)
-    return out
+        if table.device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    return out, seconds
 
 
 class _ResidentKey:
@@ -176,7 +181,8 @@ class _ResidentKey:
 
     def _load_fixed(self, **named_points):
         t0 = time.perf_counter()
-        self.fixed = _build_fixed_tables(**named_points)
+        self.fixed, self.fixed_seconds_by_set = _build_fixed_tables(
+            **named_points)
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         self.fixed_seconds = time.perf_counter() - t0

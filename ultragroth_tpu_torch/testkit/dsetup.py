@@ -13,10 +13,11 @@ work on the device:
   * per-variable polynomial evaluations A_i/B_i/C_i(tau): one Fr product
     per R1CS record and one `index_add_` into int64 limb accumulators, as
     `ops/ntt.py:scatter_coefs` does;
-  * every zkey curve point: the 8-bit windowed fixed-base multiplication,
-    32 launches of `kernels.curve_madd_valid` over all lanes (the window
-    table gather fused into the kernel), then one batched to_affine in
-    plain PyTorch on the device, in chunks of `FB_CHUNK` lanes.
+  * every zkey curve point: the 8-bit windowed fixed-base multiplication
+    as one `kernels.curve_fixed_base_mul` launch a run (a section's
+    scalars): each lane's 32 window steps with the accumulator in
+    registers, the window table staged on chip, and a batch to-affine in
+    the kernel.
 
 The host keeps the O(1) work (toxic waste, the vk points) and the byte
 shuffling, vectorised in numpy: the records of a circuit of ~2^20 rows
@@ -40,7 +41,6 @@ from ..constants import FR_MODULUS as R, FQ_MODULUS as Q, MONT_R
 from ..io.binfile import pack_binfile
 from ..ops import kernels
 from ..ops import limbs as lb
-from ..ops.curve import curve_ops
 from ..ops.field import fq, fr
 from ..ops.ntt import _powers, _redc_carry
 from ..protocol.transcript import g1_to_json, g2_to_json, root_of_unity
@@ -50,8 +50,9 @@ from .setup import (R1CS, SetupResult, UltraSetupResult, _FixedBase,
 L = lb.NLIMBS
 FB_WINDOWS = 32
 FB_CHUNK = 1 << 20
-"""Lanes per fixed-base run: bounds the int64 temporaries of the plain
-to_affine (16 x 16-bit partial products per limb product)."""
+"""Lanes per fixed-base call on the CPU: bounds the int64 temporaries of
+the plain version's to_affine (16 x 16-bit partial products per limb
+product).  On the card a run is one launch, whatever its lanes."""
 
 
 class _Clock:
@@ -140,29 +141,17 @@ def _fb_table(group: str, device):
 
 def _fb_run(group: str, scalars_std: torch.Tensor, device):
     """Batched fixed-base multiplication: standard-form scalars [8, N] ->
-    Montgomery affine (x, y, inf); 32 `curve_madd_valid` launches per
-    chunk of FB_CHUNK lanes, whatever N."""
-    ops = curve_ops(group)
+    Montgomery affine (x, y, inf); one `curve_fixed_base_mul` launch on
+    the card, calls of FB_CHUNK lanes on the CPU."""
     table, tinf = _fb_table(group, device)
-    dtype = table.dtype
     n = scalars_std.shape[1]
-    xs, ys, infs = [], [], []
-    for a in range(0, n, FB_CHUNK):
-        s = scalars_std[:, a:a + FB_CHUNK].contiguous()
-        acc = ops.inf_xyzz((s.shape[1],), table.device, dtype).contiguous()
-        for w in range(FB_WINDOWS):
-            acc = kernels.curve_madd_valid(group, acc, table, tinf, s, w,
-                                           out=acc)
-        x, y, inf = ops.to_affine(acc)      # kernel outputs are canonical
-        xs.append(x)
-        ys.append(y)
-        infs.append(inf)
-    if not xs:
-        e = (8,) if group == "g1" else (2, 8)
-        empty = torch.zeros((*e, 0), dtype=dtype, device=table.device)
-        return empty, empty, torch.zeros(0, dtype=torch.bool,
-                                         device=table.device)
-    return torch.cat(xs, -1), torch.cat(ys, -1), torch.cat(infs)
+    step = max(n, 1) if table.is_cuda else FB_CHUNK
+    parts = [kernels.curve_fixed_base_mul(
+        group, table, tinf, scalars_std[:, a:a + step].contiguous())
+        for a in range(0, max(n, 1), step)]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(p, -1) for p in zip(*parts))
 
 
 # ---------------------------------------------------------------------------
