@@ -39,13 +39,15 @@ launch a wide level, one tail launch) and its window combine one
 `curve_window_combine` launch: phase 1 prints their registers, spills and
 blocks per SM, phase 2 holds them equal to their plain versions at the
 2^20 MSMs' shapes (20 windows x 4,096 buckets with the split-32 top
-window, the fixed-base 1 x 65,536, the combine of 20 windows at c = 13)
+window, the fixed-base row of 65,536 buckets in `msm.FIXED_SPLIT`
+sub-lanes each, the combine of 20 windows at c = 13)
 and times them beside their bound and their latency floor (dependent
 product rounds x one Fq product's latency, measured by a chain of
 dependent products), phase 4 times one G1 and one G2 2^20 MSM stage by
 stage, and phase 7 checks each path's reduce and combine launches
-against the design's count, `curve_add_where` only in the fixed-base
-window folds.
+against the design's count, and no `curve_add_where` on any path (the
+fixed-base MSM sorts all windows' entries as one row, so its drain sums
+each bucket across the windows and no fold remains).
 
 The fast NTT is `fr_cg_ntt`, two launches a 2^20 transform (the Bailey
 split's twiddle product and transpose folded into the first): phase 1
@@ -67,7 +69,9 @@ the edge lanes: zero scalars, zero bytes, r - 1, points at infinity, a
 block all at infinity, a ragged last block) and times them at 2^20 lanes;
 phase 4b drives the table build as its own path (`fixed_tables_2^20`),
 prints its seconds by set and group and checks sampled rows against the
-key's known logs; phase 6 drives the UltraGroth set-up as its own path
+key's known logs, then times one fixed-base G1 and one G2 2^20 MSM stage
+by stage (`ops/msm.py:msm_fixed_stages`), each equal to `msm_fixed`'s
+output and to its known log; phase 6 drives the UltraGroth set-up as its own path
 (`ultragroth_setup_2^20`); phase 7 checks one ladder launch a non-empty
 set-up run, one window-table launch a point set and no `add_where` on the
 table build, and that no driven path ran the plain `CurveOps.to_affine`
@@ -126,11 +130,11 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
 MUL_IMAD = 264             # one 8-limb CIOS product: 8 * (16 + 1 + 16)
 # The MMA product (csrc/mma_field.cuh): the 512-bit schoolbook, 128
-# multiply-adds, on the int32 pipes; the two Toeplitz products, 32 x 32 +
-# 64 x 32 = 3,072 u8 MACs (2 operations each) a lane, on the tensor cores
-# at the dense int8 rate.
+# multiply-adds, on the int32 pipes; the Toeplitz products it forms, 32 x
+# 32 for m and 40 x 32 for the columns 24..63 of m * p = 2,304 u8 MACs (2
+# operations each) a lane, on the tensor cores at the dense int8 rate.
 MMA_IMAD = 128
-MMA_U8_OPS = 2 * 3072
+MMA_U8_OPS = 2 * 2304
 INT8_OPS_PER_S = 1.979e15
 FIXED_MSM_MB = "8000"      # all five 2^20 tables: 4 x 1.01 GB G1 + 2.01 GB G2
 FB_CHECK_LANES = (1 << 16) + 37   # the ladder held against its plain version
@@ -569,8 +573,9 @@ def reduce_checks(group, gen, dev, record, err, plain, cache, lat_ms, c=13,
                   w=20, fixed_log=16):
     """curve_bucket_reduce against its plain version at the MSM's shapes:
     the variable-base MSM's 20 windows x 4,096 buckets at c = 13 (the top
-    window in 32 sub-lanes a bucket) and the fixed-base MSM's one window
-    of 65,536 buckets (c = 17), with buckets at infinity, equal buckets,
+    window in 32 sub-lanes a bucket) and the fixed-base MSM's one row of
+    65,536 buckets (c = 17) in FIXED_SPLIT sub-lanes each, with buckets at
+    infinity, equal buckets,
     P with -P; curve_window_combine at W = 20, c = 13 (the defaults).  Inputs and plain
     results made once (`cache`) for both builds.  Each timed beside its
     bound and its latency floor: dependent product rounds x the measured
@@ -578,7 +583,7 @@ def reduce_checks(group, gen, dev, record, err, plain, cache, lat_ms, c=13,
     from ultragroth_tpu_torch.constants import FQ_MODULUS as Q
     from ultragroth_tpu_torch.ops import kernels as K
     from ultragroth_tpu_torch.ops.curve import curve_ops
-    from ultragroth_tpu_torch.ops.msm import _split_factor
+    from ultragroth_tpu_torch.ops.msm import FIXED_SPLIT, _split_factor
     ops = curve_ops(group)
     kq = 1 if group == "g1" else 2
     e = () if group == "g1" else (2,)
@@ -588,7 +593,7 @@ def reduce_checks(group, gen, dev, record, err, plain, cache, lat_ms, c=13,
     key = f"{group}_reduce"
     if key not in cache:
         shapes = {"": (w, 1 << (c - 1), [_split_factor(i, c) for i in range(w)]),
-                  ":fixed": (1, 1 << fixed_log, [1])}
+                  ":fixed": (1, FIXED_SPLIT << fixed_log, [FIXED_SPLIT])}
         entries = {}
         for tag, (nw, nb, splits) in shapes.items():
             acc = _rand_field((4, *e, 8, nw * nb), Q, gen, dev).reshape(
@@ -870,11 +875,11 @@ def window_table_checks(group, gen, dev, record, err, cache):
 
 
 @torch.inference_mode()
-def _msm_stages(group, table, inf, scalars, c):
-    """`ops/msm.py:msm` stage by stage (`msm_stages`, which `msm` itself
-    runs), the device synchronised after each: {stage: ms between CUDA
-    events}, and the MSM's output."""
-    from ultragroth_tpu_torch.ops import msm as M
+def _staged(stages):
+    """An MSM stage generator (`ops/msm.py:msm_stages`, which `msm`
+    itself runs, or `msm_fixed_stages`) run with the device synchronised
+    after each stage: {stage: ms between CUDA events}, and the MSM's
+    output."""
     events = []
 
     def mark():
@@ -885,7 +890,7 @@ def _msm_stages(group, table, inf, scalars, c):
 
     mark()
     names = []
-    for name, out in M.msm_stages(group, table, inf, scalars, c):
+    for name, out in stages:
         mark()
         names.append(name)
     return ({st: events[i].elapsed_time(events[i + 1])
@@ -902,7 +907,8 @@ def msm_stage_split(dev, prover, witness, reps=3):
     for group, (table, inf) in (("g1", prover.points_a),
                                 ("g2", prover.points_b2)):
         for _ in range(reps):
-            ms, out = _msm_stages(group, table, inf, w_std, prover.c_vars)
+            ms, out = _staged(M.msm_stages(group, table, inf, w_std,
+                                           prover.c_vars))
         check(torch.equal(out, M.msm(group, table, inf, w_std, prover.c_vars)),
               f"the {group} MSM by stage differs from msm")
         split[group] = ms
@@ -925,18 +931,17 @@ def msm_windows(prover):
 
 
 def expected_launches(windows):
-    """{kernel: launches} of the reduction and combine kernels (and the
-    fixed-base window folds' add_where) for one path's MSMs."""
+    """{kernel: launches} of the reduction and combine kernels for one
+    path's MSMs (a fixed-base MSM: one reduction over its merged row of
+    2^(c-1) buckets in FIXED_SPLIT sub-lanes each, no combine)."""
     from ultragroth_tpu_torch.ops import kernels as K
-    from ultragroth_tpu_torch.ops.msm import fixed_n_windows
+    from ultragroth_tpu_torch.ops.msm import FIXED_SPLIT
     out = {}
+    lanes = FIXED_SPLIT if windows[2] else 1
     for g, cs in (("g1", windows[0]), ("g2", windows[1])):
-        out[f"{g}_bucket_reduce"] = sum(K.bucket_reduce_launches(1 << (c - 1))
-                                        for c in cs)
+        out[f"{g}_bucket_reduce"] = sum(
+            K.bucket_reduce_launches(lanes << (c - 1)) for c in cs)
         out[f"{g}_window_combine"] = 0 if windows[2] else len(cs)
-        out[f"{g}_add_where"] = sum(
-            max(1, (fixed_n_windows(c) - 1).bit_length())
-            for c in cs) if windows[2] else 0
     return out
 
 
@@ -1098,7 +1103,8 @@ def ultragroth_full_width(dev, drive):
 # ---------------------------------------------------------------------------
 
 def mma_field_checks(dev, mma_ms):
-    """mont_mul_mma directly, at 2^16 lanes, through the MMA build's
+    """mont_mul_mma directly, at 2^16 + 37 lanes (a ragged last warp, its
+    lanes clamped), through the MMA build's
     fr_mont_mul and the Fq product probe, with the edges 0, 1, p - 1,
     inputs in [p, 2p) and a < 2^256 (b < p): equal to the plain CIOS
     product, to mont_mul_mma_plain and to the CIOS build.  Returns the
@@ -1112,7 +1118,7 @@ def mma_field_checks(dev, mma_ms):
     from ultragroth_tpu_torch.ops.mxufield import mont_mul_mma_plain
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 8)
-    n = 1 << 16
+    n = (1 << 16) + 37
     worst = 0
     for F, kern, p in ((fr(), K.fr_mont_mul, R), (fq(), K.fq_mont_mul, Q)):
         a = _rand_field((8, n), p, gen, dev)
@@ -1191,12 +1197,38 @@ def fixed_tables_check(prover, specs, samples=6):
           f"{sorted(prover.fixed)} equal k_i * 2^(c*w) * G", flush=True)
 
 
+def fixed_msm_stage_split(dev, prover, witness, expect, reps=3):
+    """The fixed-base MSMs of A (G1) and B2 (G2) over their 2^20 tables by
+    stage (`msm_fixed_stages`, the last of `reps` runs), each output equal
+    to `msm_fixed`'s and to its known-log value."""
+    from ultragroth_tpu_torch.ops import limbs as lb
+    from ultragroth_tpu_torch.ops import msm as M
+    from ultragroth_tpu_torch.protocol.prover import normalize_outputs
+    w_std = lb.words_to_planes(witness, dev)
+    split, outs = {}, {}
+    for group, key in (("g1", "a"), ("g2", "b2")):
+        table, inf, c = prover.fixed[key]
+        for _ in range(reps):
+            ms, out = _staged(M.msm_fixed_stages(group, table, inf, w_std, c))
+        check(torch.equal(out, M.msm_fixed(group, table, inf, w_std, c)),
+              f"the fixed-base {group} MSM by stage differs from msm_fixed")
+        split[f"{group}_fixed"], outs[group] = ms, out
+        print(f"  fixed-base {group} MSM 2^{LOG_N} by stage (ms, c = {c}, "
+              f"{M.FIXED_SPLIT} sub-lanes a bucket): "
+              f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}; sum "
+              f"{sum(ms.values()):.3f}", flush=True)
+    g1, g2 = normalize_outputs((outs["g1"],) * 4, outs["g2"])
+    check(g1[0] == expect["a"] and g2 == expect["b2"], "a fixed-base MSM "
+          "by stage differs from its known-log value")
+    return split
+
+
 def fixed_base_prove(dev, drive, zk, witness, expect, proof_json, specs):
     """The 2^20 Groth16 key of phase 4 with a table for each of its five
     point sets (the build a driven path: `fixed_tables_2^20`): sampled
     table rows against their known-log values, the five MSM outputs
     against theirs and the proof against the variable-base proof for the
-    same r, s."""
+    same r, s; then the G1 and G2 fixed-base MSMs by stage, returned."""
     from ultragroth_tpu_torch.protocol.prover import (TorchGroth16Prover,
                                                      normalize_outputs)
     from ultragroth_tpu_torch.trace import Tracer
@@ -1243,6 +1275,7 @@ def fixed_base_prove(dev, drive, zk, witness, expect, proof_json, specs):
     torch.cuda.synchronize()
     print(f"  steady prove {time.perf_counter() - t0:.3f} s last_phase_ms "
           f"{json.dumps(prover.last_phase_ms)}", flush=True)
+    return fixed_msm_stage_split(dev, prover, witness, expect)
 
 
 def api_mma_prove(drive, mma_paths, st, uwtns, wt, default_prover):
@@ -1605,7 +1638,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     with phase("4b_fixed_base_prove"):
-        fixed_base_prove(dev, drive, zk, witness, expect, proof_pinned, specs)
+        msm_split.update(fixed_base_prove(dev, drive, zk, witness, expect,
+                                          proof_pinned, specs))
         del zk, witness
         torch.cuda.empty_cache()
 
@@ -1632,23 +1666,29 @@ def main() -> int:
 
     with phase("7_kernel_launches"):
         total = {k: sum(p[k] for p in paths.values()) for k in K.KERNELS}
-        fixed_only = ("g1_add_where", "g2_add_where")
+        # curve_add_where: held against its plain version in phase 2, and
+        # launched on no driven path (the fixed-base MSM folds no windows)
+        unused = ("g1_add_where", "g2_add_where")
         var_only = ("g1_window_combine", "g2_window_combine")
         ladders = ("g1_fixed_base_mul", "g2_fixed_base_mul")
         tables = ("g1_window_table", "g2_window_table")
         prove_kernels = [k for k in K.KERNELS if k not in (
-            "fr_butterfly", *ladders, *tables, *fixed_only)]
+            "fr_butterfly", *ladders, *tables, *unused)]
         need = {"groth16_2^20": prove_kernels,
                 "groth16_2^20_base": ["fr_butterfly"],
                 "fixed_tables_2^20": list(tables),
                 "groth16_2^20_fixed": [k for k in prove_kernels
-                                       if k not in var_only] + list(fixed_only),
+                                       if k not in var_only],
                 "ultragroth_setup_2^20": ["fr_mont_mul", *ladders],
                 "ultragroth_2^20": prove_kernels,
                 "ultragroth_2^20_api_mma": prove_kernels}
         for name, kernels in need.items():
             missing = [k for k in kernels if paths[name][k] == 0]
             check(not missing, f"kernels never launched on {name}: {missing}")
+        adds = {p: c[k] for p, c in paths.items() for k in unused if c[k]}
+        check(not adds, f"curve_add_where launched on a driven path: {adds}")
+        print(f"  no add_where launch on any of the {len(paths)} driven "
+              "paths", flush=True)
         check(not any("horner" in k or "madd_valid" in k for k in K.KERNELS),
               "a Horner or per-step fixed-base kernel is still registered")
         # the per-key chains: one ladder launch a set-up run, one window
@@ -1679,7 +1719,7 @@ def main() -> int:
             check(drains == msms, f"{name}: (G1, G2) bucket drain launches "
                   f"{drains}, not one per MSM {msms}")
             # the reduction and the combine: the design's launches for the
-            # path's MSMs; add_where only in the fixed-base window folds
+            # path's MSMs
             want = expected_launches(PATH_WINDOWS[name])
             got = {k: paths[name][k] for k in want}
             check(got == want, f"{name}: reduction launches {got}, the design "
@@ -1711,7 +1751,7 @@ def main() -> int:
         check(sum(api_mma.values()) == sum(
             paths["ultragroth_2^20_api_mma"].values()),
             "the mma path launched kernels of the cios build")
-        missing = [k for k, v in total.items() if v == 0]
+        missing = [k for k, v in total.items() if v == 0 and k not in unused]
         check(not missing, f"kernels never launched: {missing}")
         rows = []
         for name, (source, replaces) in K.KERNELS.items():

@@ -159,6 +159,56 @@ def test_fr_kernels_match_plain_on_card(dev):
         assert torch.equal(lb.widen(k.cpu()), K.fr_butterfly_plain(a.clone(), tw))
 
 
+def test_mma_product_matches_plain_on_card(dev):
+    """The mma build's product (raw mma.sync over ldmatrix-loaded lane
+    rows) through fr_mont_mul and the Fq probe at 3 warps + 5 lanes (the
+    last warp clamped), with the edges 0, 1, p - 1, 2p - 1 (Fq's lazy
+    values) and 2^256 - 1 against p - 1: equal to the CIOS build, the
+    plain CIOS product and mont_mul_mma_plain."""
+    from ultragroth_tpu_torch.constants import FQ_MODULUS as Q
+    from ultragroth_tpu_torch.ops.field import fr
+    from ultragroth_tpu_torch.ops.mxufield import mont_mul_mma_plain
+    rng = random.Random(67)
+    n = 3 * 32 + 5
+    top = (1 << 256) - 1
+    for F, kern, p in ((fr(), K.fr_mont_mul, R), (fq(), K.fq_mont_mul, Q)):
+        a = [rng.randrange(p) for _ in range(n)]
+        b = [rng.randrange(p) for _ in range(n)]
+        a[:6] = [0, 1, p - 1, 2 * p - 1, top, p - 1]
+        b[:6] = [p - 1, 1, p - 1, 2 * p - 1, p - 1, 0]
+        a[-1], b[-1] = top, p - 1
+        ta, tb = lb.ints_to_planes(a), lb.ints_to_planes(b)
+        want = F.mont_mul(ta, tb)
+        assert torch.equal(want, mont_mul_mma_plain(F, ta, tb))
+        for mode in K.FIELD_MODES:
+            with K.field_mode(mode):
+                k = kern(_cu(ta, dev), _cu(tb, dev))
+            assert torch.equal(lb.widen(k.cpu()), want), (F.name, mode)
+
+
+@pytest.mark.parametrize("split", [1, 4])
+def test_msm_fixed_merged_row_on_card_matches_cpu(dev, split, monkeypatch):
+    """The fixed-base MSM's merged row on the card (one drain of `split`
+    sub-lanes a bucket, one reduction, no add_where launch) equal to the
+    CPU's, G1 and G2, c = 4 over 40 points."""
+    from ultragroth_tpu_torch.ops import msm as M
+    monkeypatch.setattr(M, "FIXED_SPLIT", split)
+    rng = random.Random(68)
+    sc = lb.ints_to_planes([rng.randrange(R) for _ in range(40)])
+    for group in ("g1", "g2"):
+        table = table_from_planes(_points(group, 40))
+        inf = torch.zeros(40, dtype=torch.bool)
+        ftab, finf, c = M.msm_fixed_table(group, table, inf, 4)
+        want = M.msm_fixed(group, ftab, finf, sc, c)
+        K.reset_launch_counts()
+        got = M.msm_fixed(group, _cu(ftab, dev), finf.to(dev), _cu(sc, dev),
+                          c)
+        assert torch.equal(lb.widen(got.cpu()), want), group
+        counts = K.launch_counts()
+        assert counts[f"{group}_bucket_drain"] == 1
+        assert counts[f"{group}_add_where"] == 0
+
+
 def _edge_scalars(n, seed):
     """Canonical scalars [8, n] (int64 limbs) with the edge lanes: 0, 1,
     r - 1, a lone top byte, zero bytes in eight windows; lanes 128-255

@@ -149,7 +149,8 @@ def test_port_imports_without_jax():
         "from ultragroth_tpu_torch.ops import kernels, msm, ntt, _build\n"
         "from ultragroth_tpu_torch.ops import mxufield\n"
         "from ultragroth_tpu_torch.ops.ntt import ntt_fast, ntt_mode\n"
-        "from ultragroth_tpu_torch.ops.msm import msm_fixed, msm_fixed_table\n"
+        "from ultragroth_tpu_torch.ops.msm import (\n"
+        "    msm_fixed, msm_fixed_stages, msm_fixed_table)\n"
         "from ultragroth_tpu_torch.ops.kernels import (\n"
         "    curve_bucket_drain, curve_bucket_drain_plain,\n"
         "    curve_fixed_base_mul, curve_window_table)\n"
@@ -159,7 +160,7 @@ def test_port_imports_without_jax():
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"
         "import torch_drain_variants, torch_ntt_variants, torch_variants\n"
-        "import torch_chain_variants\n"
+        "import torch_chain_variants, torch_mma_variants\n"
         "assert not any(m == 'jax' or m.startswith('jax.') or\n"
         "               m.startswith('ultragroth_tpu.') for m in sys.modules\n"
         "               if sys.modules[m] is not None)\n"

@@ -83,6 +83,47 @@ def test_msm_fixed_matches_oracle(group, c, n):
                        for p in pts[:8]]
 
 
+@pytest.mark.parametrize("group,c,n,split", [("g1", 2, 8, pmsm.FIXED_SPLIT),
+                                             ("g1", 4, 20, 1),
+                                             ("g2", 4, 10, 4)])
+def test_msm_fixed_merged_row_matches_oracle(group, c, n, split,
+                                            monkeypatch):
+    """The merged row (every window's entries sorted as one row, one drain
+    of `split` sub-lanes a bucket, one reduction) against the oracle: at
+    c = 2, where 254 % c == 0 leaves the spare window for the last carry
+    (r - 1 and a scalar whose top digits carry reach it), and with 1 and
+    4 sub-lanes a bucket."""
+    monkeypatch.setattr(pmsm, "FIXED_SPLIT", split)
+    pts, sc = _case(group, n, seed=90 + c)
+    sc[2] = (1 << 253) + (1 << 252) + 5        # top digits with a carry
+    table, inf = point_table(group, pts)
+    ftab, finf, _ = pmsm.msm_fixed_table(group, table, inf, c)
+    assert pmsm.fixed_n_windows(c) == -(-254 // c) + (254 % c == 0)
+    got = pmsm.msm_fixed(group, ftab, finf, lb.ints_to_planes(sc), c)
+    assert affine_points(group, got[..., None]) == [_oracle_msm(group, pts,
+                                                                sc)]
+
+
+def test_msm_fixed_never_adds_windows_apart(monkeypatch):
+    """No window fold: `msm_fixed` never calls `curve_add_where`, and its
+    stages are `msm_stages`' without the combine."""
+    from ultragroth_tpu_torch.ops import kernels as K
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("msm_fixed called curve_add_where")
+    monkeypatch.setattr(K, "curve_add_where", refuse)
+    pts, sc = _case("g1", 12, seed=5)
+    table, inf = point_table("g1", pts)
+    ftab, finf, c = pmsm.msm_fixed_table("g1", table, inf, 4)
+    scal = lb.ints_to_planes(sc)
+    stages = [name for name, _ in pmsm.msm_fixed_stages("g1", ftab, finf,
+                                                         scal, c)]
+    assert stages == ["readback", "digits", "sort_bincount", "index_math",
+                      "drain", "reduce"]
+    got = pmsm.msm_fixed("g1", ftab, finf, scal, c)
+    assert affine_points("g1", got[..., None]) == [_oracle_msm("g1", pts, sc)]
+
+
 def test_msm_fixed_refuses_what_it_does_not_take():
     c = 4
     ftab = torch.zeros(pmsm.fixed_n_windows(c) * 64, 2, 8, dtype=torch.int64)

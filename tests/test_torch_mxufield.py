@@ -170,6 +170,80 @@ def test_mma_lane_steps_match_plain(mma_host_lib, name):
                                                                      tb)))
 
 
+def _edge_operands(p, n, seed):
+    """`_operands` with the edges of the warp product's contract in the
+    first lanes: 0, 1, p - 1 and 2p - 1 (the lazy Fq values) on either
+    side, and 2^256 - 1 against p - 1 and 0."""
+    a, b = _operands(p, n, seed)
+    top = (1 << 256) - 1
+    a[:8] = [0, 1, p - 1, 2 * p - 1, top, top, p - 1, 1]
+    b[:8] = [p - 1, 2 * p - 1, p - 1, 2 * p - 1, p - 1, 0, 0, 1]
+    return a, b
+
+
+@pytest.mark.parametrize("name", ["fr", "fq"])
+def test_mma_warp_product_matches_plain(mma_host_lib, name):
+    """The device product's data movement, a warp's 32 lanes at a time
+    (`mont_mul_mma_warp_ref`: the operand rows, ldmatrix.x4, the
+    m16n8k32 fragments, the C pair stores and the row loads at the
+    device's shared-memory offsets, with ldmatrix and mma done by their
+    fragment maps), 77 lanes (a ragged last warp, clamped as the kernels
+    clamp it), bit for bit against mont_mul_mma_plain, the CIOS product
+    and the JAX `mont_mul_mxu`."""
+    port_f, jax_f, p = FIELDS[name]
+    n = 77
+    a, b = _edge_operands(p, n, seed=31 if name == "fr" else 32)
+    A = _Args()
+    ta, tb = lb.ints_to_planes(a), lb.ints_to_planes(b)
+    out = np.zeros((8, n), np.uint32)
+    mma_host_lib.ugh_mma_mont_mul_warp(ctypes.c_int(0 if name == "fr" else 1),
+                                       A.p(A.u32(ta)), A.p(A.u32(tb)),
+                                       A.p(out), ctypes.c_int64(n))
+    got = lb.widen(torch.from_numpy(out.view(np.int32)))
+    assert torch.equal(got, mont_mul_mma_plain(port_f(), ta, tb))
+    assert torch.equal(got, port_f().mont_mul(ta, tb))
+    want = mont_mul_mxu(jax_f(), jnp.asarray(convert.from_torch(ta)),
+                        jnp.asarray(convert.from_torch(tb)))
+    assert torch.equal(got, lb.widen(convert.to_torch(np.asarray(want))))
+    assert lb.planes_to_ints(got) == _want(p, a, b)
+
+
+def test_mma_shared_memory_maps_are_conflict_free(mma_host_lib):
+    """The swizzled offsets of the warp product (csrc/mma_field.cuh): in
+    every phase of a shared-memory access (8 threads for 16 bytes, 16
+    for 8 bytes, one 8-row matrix of an ldmatrix.x4) the threads' 4-byte
+    banks are distinct; the operand row is chunks 8 and 9 of the lane's
+    column-sum row, which the Np step's C stores (columns 0..31) leave
+    alone."""
+    op = np.zeros((32, 2), np.int32)
+    cs = np.zeros((32, 40), np.int32)
+    ldm = np.zeros((2, 32), np.int32)
+    cst = np.zeros((2, 2, 32, 5), np.int32)
+    A = _Args()
+    mma_host_lib.ugh_mma_maps(A.p(op), A.p(cs), A.p(ldm), A.p(cst))
+
+    def free(words, width):
+        banks = [(w + k) % 32 for w in words for k in range(width)]
+        return len(set(banks)) == len(banks)
+
+    for g in range(4):                      # 16-byte accesses, 8 lanes
+        lanes = range(8 * g, 8 * g + 8)
+        assert all(free([op[l, h] // 4 for l in lanes], 4) for h in (0, 1))
+        assert all(free([cs[l, 4 * q] for l in lanes], 4) for q in range(10))
+        assert all(free([ldm[mt, l] // 4 for l in lanes], 4) for mt in (0, 1))
+    for half in (range(16), range(16, 32)):   # 8-byte C pair stores
+        for mt in (0, 1):
+            for pp in (0, 1):
+                assert all(free([cst[mt, pp, l, j] for l in half], 2)
+                           for j in range(5))
+    assert sorted(set(cs.reshape(-1))) == list(range(32 * 40))
+    assert (op == 4 * cs[:, [32, 36]]).all()
+    np_words = {int(cst[mt, pp, l, j]) + k for mt in (0, 1) for pp in (0, 1)
+                for l in range(32) for j in range(4) for k in (0, 1)}
+    assert not np_words & {int(w) // 4 + k for w in op.reshape(-1)
+                           for k in range(4)}
+
+
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_mma_build_curve_lane_bodies_match_plain(mma_host_lib, group):
     _curve_bodies(mma_host_lib, group)

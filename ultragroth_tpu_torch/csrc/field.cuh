@@ -38,10 +38,6 @@
 #define UG_SYM(x) ug_##x
 #endif
 
-#if defined(__CUDACC__) && UG_MMA_FIELD
-#include <mma.h>
-#endif
-
 #if defined(__CUDACC__)
 #define UG_HD __host__ __device__ __forceinline__
 #else
@@ -110,11 +106,11 @@ struct fe { uint32_t v[8]; };
 struct FrParams {
   static constexpr bool kLazy = false;
   static constexpr uint32_t kNinv = 0xefffffffu;   // -r^-1 mod 2^32
-  UG_HD static uint32_t p(int i) {
+  UG_HD static constexpr uint32_t p(int i) {
     const uint32_t P[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
                            0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
     return P[i]; }
-  UG_HD static uint32_t np(int i) {   // -r^-1 mod 2^256 (the MMA field)
+  UG_HD static constexpr uint32_t np(int i) {   // -r^-1 mod 2^256 (the MMA field)
     const uint32_t P[8] = {0xefffffffu, 0xc2e1f593u, 0x4c6911b3u, 0x6586864bu,
                            0x99062391u, 0xe39a9828u, 0x0d8341b2u, 0x73f82f1du};
     return P[i]; }
@@ -131,11 +127,11 @@ struct FrParams {
 struct FqParams {
   static constexpr bool kLazy = true;
   static constexpr uint32_t kNinv = 0xe4866389u;   // -q^-1 mod 2^32
-  UG_HD static uint32_t p(int i) {
+  UG_HD static constexpr uint32_t p(int i) {
     const uint32_t P[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
                            0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
     return P[i]; }
-  UG_HD static uint32_t np(int i) {   // -q^-1 mod 2^256 (the MMA field)
+  UG_HD static constexpr uint32_t np(int i) {   // -q^-1 mod 2^256 (the MMA field)
     const uint32_t P[8] = {0xe4866389u, 0x87d20782u, 0x1eca6ac9u, 0x9ede7d65u,
                            0x1833da80u, 0xd8afcbd0u, 0x91888c6bu, 0xf57a22b7u};
     return P[i]; }

@@ -271,6 +271,48 @@ extern "C" int ugh_mma_mont_mul(int field, const void* a, const void* b, void* o
   return 0;
 }
 
+// The same product as the device's warps compute it: the lanes in groups
+// of 32 through mont_mul_mma_warp_ref (the device's shared-memory offsets
+// and fragment maps), a ragged last group clamped to lane n-1 as the MMA
+// build's kernels clamp it.
+extern "C" int ugh_mma_mont_mul_warp(int field, const void* a, const void* b, void* out,
+                                     int64_t n) {
+  for (int64_t w0 = 0; w0 < n; w0 += 32) {
+    ug::fe x[32], y[32], z[32];
+    for (int l = 0; l < 32; l++) {
+      const int64_t i = w0 + l < n ? w0 + l : n - 1;
+      x[l] = ug::load((const uint32_t*)a, n, i, 0);
+      y[l] = ug::load((const uint32_t*)b, n, i, 0);
+    }
+    if (field == 0)
+      ug::mont_mul_mma_warp_ref<ug::FrParams>(x, y, z);
+    else
+      ug::mont_mul_mma_warp_ref<ug::FqParams>(x, y, z);
+    for (int l = 0; l < 32 && w0 + l < n; l++) ug::store((uint32_t*)out, n, w0 + l, 0, z[l]);
+  }
+  return 0;
+}
+
+// The warp product's shared-memory offsets, for the CPU tests' bank
+// checks: op [32][2] operand half bytes; cs [32][40] column-sum words;
+// ldm [2][32] the byte each thread gives ldmatrix.x4 for m-tile mt;
+// cst [2][2][32][5] the word of C pair p of n-tile j of m-tile mt.
+extern "C" int ugh_mma_maps(int* op, int* cs, int* ldm, int* cst) {
+  for (int r = 0; r < 32; r++) {
+    for (int h = 0; h < 2; h++) op[2 * r + h] = ug::mma_op_byte(r, h);
+    for (int c = 0; c < ug::kMmaRowWords; c++) cs[ug::kMmaRowWords * r + c] = ug::mma_cs_word(r, c);
+  }
+  for (int mt = 0; mt < 2; mt++)
+    for (int l = 0; l < 32; l++) {
+      ldm[32 * mt + l] = ug::mma_op_byte(ug::mma_ldm_row(l, mt), ug::mma_ldm_half(l));
+      for (int p = 0; p < 2; p++)
+        for (int j = 0; j < 5; j++)
+          cst[((mt * 2 + p) * 32 + l) * 5 + j] = ug::mma_cs_word(
+              16 * mt + ug::mma_c_row(l, 2 * p), 8 * j + ug::mma_c_col(l, 2 * p));
+    }
+  return 0;
+}
+
 extern "C" int ugh_fq_chain(const void* a, const void* b, void* out, int64_t n,
                             int32_t steps) {
   for (int64_t i = 0; i < n; i++)

@@ -114,18 +114,21 @@ def _signed_digits(s64: torch.Tensor, c: int, n_windows: int):
     return torch.stack(buckets), torch.stack(negs)
 
 
-def _drain_lanes(n: int, counts, c: int, splits):
+def _drain_lanes(n: int, counts, c: int, splits, width: int | None = None):
     """The drain's lanes for all windows: sub-lane j of bucket d of window
     w reads order entries w*n + offset(d) + j, + split, ... (gidx,
-    stride, cnt, int32 [W * 2^(c-1)]).  counts [W, 2^(c-1)]."""
+    stride, cnt, int32 [W * width]; width: lanes a window, 2^(c-1) by
+    default, the top windows' few buckets in splits[w] sub-lanes each).
+    counts [W, 2^(c-1)]."""
     dev = counts.device
     n_buckets = 1 << (c - 1)
+    width = n_buckets if width is None else width
     n_windows = counts.shape[0]
     counts = counts.long()
     offsets = torch.cat([torch.zeros((n_windows, 1), dtype=torch.long,
                                      device=dev),
                          torch.cumsum(counts, 1)[:, :-1]], 1)
-    lane = torch.arange(n_buckets, device=dev)[None, :]
+    lane = torch.arange(width, device=dev)[None, :]
     split_w = torch.tensor(splits, device=dev)[:, None]
     d = lane // split_w
     j = lane % split_w
@@ -134,46 +137,24 @@ def _drain_lanes(n: int, counts, c: int, splits):
     cnt = torch.clamp(cnt - j + split_w - 1, min=0) // split_w
     w_off = (torch.arange(n_windows, device=dev) * n)[:, None]
     gidx = (w_off + base).reshape(-1).to(torch.int32).contiguous()
-    stride = split_w.expand(-1, n_buckets).reshape(-1).to(torch.int32).contiguous()
+    stride = split_w.expand(-1, width).reshape(-1).to(torch.int32).contiguous()
     return gidx, stride, cnt.reshape(-1).to(torch.int32).contiguous()
 
 
-def _accumulate(group: str, table, orders, counts, c: int, splits):
-    """Bucket accumulation for all windows (JAX package's
-    `_bucket_accumulate_all`) as ONE drain launch.  orders [W, N] int32
-    entries pid*2+sign, counts [W, 2^(c-1)].  Returns xyzz sub-lane
-    accumulators [4, *elem, W, 2^(c-1)]."""
-    return _drain(group, table, orders,
-                  _drain_lanes(orders.shape[1], counts, c, splits), c)
-
-
-def _drain(group: str, table, orders, lanes, c: int):
-    """`_accumulate` after the lanes' index math: the drain launch."""
+def _drain(group: str, table, orders, lanes):
+    """Bucket accumulation for all windows (the JAX package's
+    `_bucket_accumulate_all`) as ONE drain launch over the lanes'
+    (`_drain_lanes`): orders [W, N] int32 entries pid*2+sign.  Returns the
+    xyzz sub-lane sums [4, *elem, W, lanes a window]."""
     acc = kernels.curve_bucket_drain(
         group, table, orders.reshape(-1).contiguous(), *lanes)
-    return acc.reshape(acc.shape[:-1] + (orders.shape[0], 1 << (c - 1)))
-
-
-def _add_all(group, a, b):
-    """Complete add of two xyzz batches of any trailing batch shape."""
-    shape = a.shape
-    lead = tuple(shape[:2 if group == "g1" else 3])      # [4, *elem]
-    out = kernels.curve_add_where(group, a.reshape(lead + (-1,)).contiguous(),
-                                  b.reshape(lead + (-1,)).contiguous())
-    return out.reshape(shape)
-
-
-def _bucket_orders(s64, inf, c: int, n_windows: int, pids):
-    """Signed digits of every window, sorted by bucket: (orders [W, N]
-    int32 entries pid*2 + sign, stable within a bucket; counts [W,
-    2^(c-1)]).  pids [W, N]: the table column each (window, point) pair
-    reads."""
-    return _sort_buckets(*_signed_digits(s64, c, n_windows), inf, c, pids)
+    return acc.reshape(acc.shape[:-1] + (orders.shape[0], -1))
 
 
 def _sort_buckets(buckets, negs, inf, c: int, pids):
-    """`_bucket_orders` after the digits: the stable sort by bucket and
-    the counts."""
+    """Signed digits [W, N] sorted by bucket: (orders [W, N] int32
+    entries pid*2 + sign, stable within a bucket; counts [W, 2^(c-1)]).
+    pids [W, N]: the table row each (window, point) pair reads."""
     n_windows = buckets.shape[0]
     n_buckets = 1 << (c - 1)
     # bucket b >= 1 -> index b-1; bucket 0 and infinity points -> sentinel
@@ -213,7 +194,7 @@ def msm_stages(group: str, table: torch.Tensor, inf: torch.Tensor,
     yield "sort_bincount", (orders, counts)
     lanes = _drain_lanes(n, counts, c, splits)
     yield "index_math", lanes
-    acc = _drain(group, table.contiguous(), orders, lanes, c)
+    acc = _drain(group, table.contiguous(), orders, lanes)
     yield "drain", acc
     wsums = kernels.curve_bucket_reduce(group, acc, splits)
     yield "reduce", wsums
@@ -257,10 +238,22 @@ def msm_g2(table, inf, scalars, c: int = 16):
 #
 #   sum_i k_i P_i = sum_{w,i} d_{w,i} * (2^(c*w) P_i)
 #
-# and every window's digits then index the same buckets: the W windows'
-# accumulators are folded with complete adds, with no Horner combine, and
-# the window can be larger (c ~ log2(N) - 2) because only one bucket
-# reduction remains.
+# and every window's digits then index the same buckets: all W windows'
+# (point, digit) entries are sorted as ONE row, so the drain sums each
+# bucket across the windows with the mixed adds it already does, with no
+# window fold and no Horner combine, and the window can be larger (c ~
+# log2(N) - 2) because only one bucket reduction remains.
+
+FIXED_SPLIT = 2
+"""Sub-lanes a bucket of the fixed-base MSM's merged row: the drain's
+2^(c-1) * FIXED_SPLIT lanes each add ~W N / 2^(c-1) / FIXED_SPLIT points,
+and the reduction pre-folds them.  Measured at c = 17 over 2^20 points
+(`tools/torch_mma_variants.py --fixed`, one NVIDIA H100 80GB HBM3 at
+700 W), drain + reduce in ms, G1 / G2: 1 sub-lane 10.14 / 22.01, 2 8.57
+/ 22.16, 4 8.40 / 22.82, 8 8.40 / 24.72 (the per-window path with its
+window folds: 13.42 / 36.58).  One lane a bucket leaves the G1 drain
+1.3 waves deep; 2 is within 2 % of the best in both groups."""
+
 
 def fixed_n_windows(c: int) -> int:
     nw = -(-SCALAR_BITS // c)
@@ -316,18 +309,42 @@ def msm_fixed_table(group: str, table: torch.Tensor, inf: torch.Tensor,
     return out, inf, c
 
 
-def _fold_windows(group: str, acc: torch.Tensor) -> torch.Tensor:
-    """[4, *elem, W, nb] -> [4, *elem, 1, nb]: the window axis summed with
-    complete adds (padded with infinity to a power of two)."""
-    ops = curve_ops(group)
-    w = acc.shape[-2]
-    m = 1 << max(1, (w - 1).bit_length())
-    if m > w:
-        pad = ops.inf_xyzz((m - w, acc.shape[-1]), acc.device, acc.dtype)
-        acc = torch.cat([acc, pad], dim=-2)
-    while acc.shape[-2] > 1:
-        acc = _add_all(group, acc[..., 0::2, :], acc[..., 1::2, :])
-    return acc
+def msm_fixed_stages(group: str, table: torch.Tensor, inf: torch.Tensor,
+                     scalars: torch.Tensor, c: int):
+    """`msm_fixed`'s work as a generator, as `msm_stages`: yields (stage,
+    its output) after each stage is enqueued (readback, digits,
+    sort_bincount, index_math, drain, reduce), the last output the MSM's
+    point.  Arguments checked by `msm_fixed`; n > 0.
+
+    The W windows' digits [W, Npad] are one row [1, W * Npad] whose entry
+    w * Npad + i reads table row w * Npad + i, with the infinity mask
+    repeated W times; one stable sort and one bincount over 2^(c-1)
+    buckets; one drain of `FIXED_SPLIT` sub-lanes a bucket; one reduction
+    that pre-folds the sub-lanes."""
+    split = FIXED_SPLIT
+    dev = table.device
+    size = inf.shape[0]
+    nw = fixed_n_windows(c)
+    s64 = widen(scalars)
+    if not bool(_scalars_below_r(s64)):
+        raise ValueError("msm_fixed: scalars must be canonical (< r)")
+    n = s64.shape[1]
+    if n < size:
+        s64 = torch.cat([s64, torch.zeros((8, size - n), dtype=s64.dtype,
+                                          device=s64.device)], dim=1)
+    yield "readback", s64
+    buckets, negs = _signed_digits(s64, c, nw)
+    digits = (buckets.reshape(1, -1), negs.reshape(1, -1))
+    yield "digits", digits
+    orders, counts = _sort_buckets(
+        *digits, inf.to(dev).repeat(nw), c,
+        torch.arange(nw * size, device=dev)[None, :])
+    yield "sort_bincount", (orders, counts)
+    lanes = _drain_lanes(nw * size, counts, c, [split], split << (c - 1))
+    yield "index_math", lanes
+    acc = _drain(group, table, orders, lanes)
+    yield "drain", acc
+    yield "reduce", kernels.curve_bucket_reduce(group, acc, [split])[..., 0]
 
 
 @torch.inference_mode()
@@ -337,14 +354,11 @@ def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
     as ONE xyzz point [4, *elem].  scalars [8, n] standard-form Fr, n <=
     Npad (zero-padded), each < r (checked).
 
-    The JAX package sorts and counts per window row (`ops/msm.py:628-645`,
-    a TPU compile work-around); here it is the variable-base MSM's own
-    stable sort per row and one bincount.  Each (window, bucket) lane
-    accumulates the table rows of its window's points, so the bucket
-    loop is `_accumulate`'s, with no sub-lane splits (the top window's few
-    digits only leave its lanes short)."""
+    The JAX package sorts and counts per window row and folds the
+    windows' buckets (`ops/msm.py:628-657`); here every window's entries
+    are one row (`msm_fixed_stages`), so one drain sums each bucket over
+    all windows and one reduction follows, with no fold."""
     ops = curve_ops(group)
-    dev = table.device
     size = inf.shape[0]
     nw = fixed_n_windows(c)
     n = scalars.shape[-1]
@@ -353,18 +367,8 @@ def msm_fixed(group: str, table: torch.Tensor, inf: torch.Tensor,
         raise ValueError(f"msm_fixed: table {tuple(table.shape)}, inf "
                          f"{tuple(inf.shape)}, scalars {tuple(scalars.shape)}"
                          f", c = {c}")
-    s64 = widen(scalars)
     if n == 0:
-        return ops.inf_xyzz((1,), dev, table.dtype)[..., 0]
-    if not bool(_scalars_below_r(s64)):
-        raise ValueError("msm_fixed: scalars must be canonical (< r)")
-    if n < size:
-        s64 = torch.cat([s64, torch.zeros((8, size - n), dtype=s64.dtype,
-                                          device=s64.device)], dim=1)
-    # window w of point i reads table row w * size + i
-    orders, counts = _bucket_orders(
-        s64, inf.to(dev), c, nw,
-        torch.arange(nw * size, device=dev).reshape(nw, size))
-    acc = _accumulate(group, table, orders, counts, c, [1] * nw)
-    return kernels.curve_bucket_reduce(group, _fold_windows(group, acc),
-                                       [1])[..., 0]
+        return ops.inf_xyzz((1,), table.device, table.dtype)[..., 0]
+    for _, out in msm_fixed_stages(group, table, inf, scalars, c):
+        pass
+    return out
