@@ -45,7 +45,7 @@ and times them beside their bound and their latency floor (dependent
 product rounds x one Fq product's latency, measured by a chain of
 dependent products), phase 4 times one G1 and one G2 2^20 MSM stage by
 stage, and phase 7 checks each path's reduce and combine launches
-against the design's count, and no `curve_add_where` on any path (the
+against the design's count, and no `curve_add_where` on any single-device path (the
 fixed-base MSM sorts all windows' entries as one row, so its drain sums
 each bucket across the windows and no fold remains).
 
@@ -77,6 +77,22 @@ set-up run, one window-table launch a point set and no `add_where` on the
 table build, and that no driven path ran the plain `CurveOps.to_affine`
 on the card.
 
+The multi-device layer, the C ABI and the native runtime: phase 4c
+proves the 2^20 key over `Mesh([cuda:0] * MESH)` (the 'chip' axis on one
+card; path `groth16_2^20_mesh`), its proof equal to phase 4's for the
+same r, s and its five sharded MSM outputs equal to their known logs,
+each MSM's partial points folded by `curve_add_where` (phase 7 checks
+log2(MESH) fold launches a MSM there and none on any single-device
+path); phase 4d holds the 4-step sharded NTT at 2^20 equal to `ntt_fast`
+in both NTT modes (paths `ntt_sharded_2^20`, `..._base`, the latter the
+mesh path's `fr_butterfly` launches); phase 6e proves a 2^10 key over a
+('host', 'chip') mesh in a child process whose `runtime.configure` forms
+a one-rank NCCL group from ULTRAGROTH_COORDINATOR; phase 6f builds the
+port's C ABI shim (and the remote client) with g++ and proves the 2^10
+key through it, loaded by ctypes (path `capi_2^10`), verified by its
+verifier ABI; phase 6g holds the native host runtime's Keccak, repack and
+section scan against the Python paths.
+
 One line per phase (name, seconds, pass/fail) is printed as each phase
 ends; before the last line come one JSON object with every kernel's
 launches (their sum over the driven paths in `launches`, each path's own
@@ -85,7 +101,8 @@ limit; the last line is {"ok": true, "device": {...}}.  Any failed check
 exits non-zero.  Each driven path (the Groth16 2^20 prove, the same prove
 in the `base` NTT mode and over fixed-base tables, the 2^20 quotient in
 each NTT mode, the UltraGroth set-up and prove, the UltraGroth prove
-through the API in the `mma` mode) runs
+through the API in the `mma` mode, the mesh prove, the sharded NTTs, the
+C ABI prove) runs
 with the launch counts set to 0 just before it and read just after; the
 `mont_mul_mma` row counts the launches of MMA-built kernels.
 
@@ -144,10 +161,17 @@ DRAIN_TIME_STEPS = 256     # the bucket drain timed
 # the TPU kernel of the drain's exceptional steps (its KERNELS entry names
 # curve_madd_fast)
 DRAIN_EXCEPTIONAL_REPLACES = "ultragroth_tpu/ops/kernels.py:77"
+MESH = 2                   # the mesh paths' shards: Mesh([cuda:0] * MESH)
 # the MSMs of each driven path: (G1, G2) bucket drain launches
 PATH_MSMS = {"groth16_2^20": (4, 1), "groth16_2^20_base": (4, 1),
              "groth16_2^20_fixed": (4, 1), "ultragroth_2^20": (5, 1),
-             "ultragroth_2^20_steady": (5, 1), "ultragroth_2^20_api_mma": (5, 1)}
+             "ultragroth_2^20_steady": (5, 1), "ultragroth_2^20_api_mma": (5, 1),
+             "groth16_2^20_mesh": (4 * MESH, MESH)}
+# the shards each MSM of a path runs on (its reduce / combine launches are
+# one MSM's times this)
+PATH_SHARDS = {"groth16_2^20_mesh": MESH}
+# add_where at the mesh fold's shape (phase 4c), for the kernels line
+MESH_FOLD = {}
 # each driven path's MSM windows: path -> (G1 c's, G2 c's, fixed-base),
 # filled as the paths run (`msm_windows`)
 PATH_WINDOWS = {}
@@ -1441,6 +1465,237 @@ def cli_check():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the multi-device layer, the C ABI and the native host runtime
+# ---------------------------------------------------------------------------
+
+def mesh_prove(dev, drive, zk, witness, expect, proof_json):
+    """Phase 4c: the 2^20 key of phase 4 over Mesh([cuda:0] * MESH) (the
+    'chip' axis on one card; the path `groth16_2^20_mesh`): each shard's
+    MSMs, the cross-shard folds (`curve_add_where`) and the 4-step
+    quotient; the proof against phase 4's for the same r, s and the five
+    sharded MSM outputs against their known logs."""
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.parallel import Mesh
+    from ultragroth_tpu_torch.protocol.prover import (TorchGroth16Prover,
+                                                     normalize_outputs)
+    from ultragroth_tpu_torch.trace import Tracer
+    t0 = time.perf_counter()
+    prover = TorchGroth16Prover(zk, mesh=Mesh([dev] * MESH))
+    torch.cuda.synchronize()
+    print(f"  mesh prover ({MESH} shards on one card) set-up "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(not prover.fixed, "fixed-base tables under a mesh")
+    t0 = time.perf_counter()
+    proof = drive("groth16_2^20_mesh", lambda: prover.prove(
+        witness, r=R_BLIND, s=S_BLIND))
+    PATH_WINDOWS["groth16_2^20_mesh"] = msm_windows(prover)
+    print(f"  first prove {time.perf_counter() - t0:.3f} s last_phase_ms "
+          f"{json.dumps(prover.last_phase_ms)}", flush=True)
+    check(proof.to_json() == proof_json,
+          "the mesh proof differs from the single-device proof")
+    outs = prover.msm_outputs(witness, Tracer(dev))
+    (pa, pb1, pc, ph), pb2 = normalize_outputs(
+        (outs[0], outs[1], outs[3], outs[4]), outs[2])
+    got = {"a": pa, "b1": pb1, "b2": pb2, "c": pc, "h": ph}
+    for name in expect:
+        check(got[name] == expect[name], f"sharded 2^{LOG_N} MSM {name} "
+              "differs from its known-log value")
+    print("  five sharded MSM outputs equal their known-log values; proof "
+          "== the single-device proof", flush=True)
+    # the fold's kernel at the mesh path's shape: MESH / 2 lanes, every
+    # lane added (ok None); G1 two distinct points, G2 a doubling
+    for group, a, b in (("g1", outs[0], outs[1]), ("g2", outs[2], outs[2])):
+        a = torch.stack([a] * (MESH // 2), -1).contiguous()
+        b = torch.stack([b] * (MESH // 2), -1).contiguous()
+        k = K.curve_add_where(group, a, b)
+        pl = K.curve_add_where_plain(group, a, b)
+        check(torch.equal(k, pl), f"{group}_add_where at the mesh fold's "
+              "shape disagrees with its plain version")
+        MESH_FOLD[f"{group}_add_where"] = {
+            "lanes": MESH // 2, "max_abs_err": 0,
+            "ms": cuda_time_ms(lambda: K.curve_add_where(group, a, b), 50)}
+    print(f"  add_where at the fold's shape == plain: "
+          f"{json.dumps(MESH_FOLD)}", flush=True)
+    t0 = time.perf_counter()
+    prover.prove(witness, r=R_BLIND, s=S_BLIND)
+    torch.cuda.synchronize()
+    print(f"  steady prove {time.perf_counter() - t0:.3f} s last_phase_ms "
+          f"{json.dumps(prover.last_phase_ms)}", flush=True)
+
+
+def sharded_ntt_check(dev, drive):
+    """Phase 4d: the 4-step NTT at 2^20 over Mesh([cuda:0] * MESH), forward
+    and inverse, in both NTT modes (paths `ntt_sharded_2^20` and
+    `ntt_sharded_2^20_base`), equal to `ntt_fast`; timed beside it."""
+    from ultragroth_tpu_torch.constants import FR_MODULUS as R
+    from ultragroth_tpu_torch.ops.ntt import Domain, ntt_fast
+    from ultragroth_tpu_torch.parallel import Mesh
+    from ultragroth_tpu_torch.parallel.ntt import MeshDomain, ntt_sharded
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    a = _rand_field((8, 1 << LOG_N), R, gen, dev)
+    dom = Domain(LOG_N, dev)
+    mdom = MeshDomain(LOG_N, Mesh([dev] * MESH))
+    ms = {"ntt_fast": cuda_time_ms(lambda: ntt_fast(a, dom), 5)}
+    for mode, path in (("fast", "ntt_sharded_2^20"),
+                       ("base", "ntt_sharded_2^20_base")):
+        got = drive(path, lambda: [ntt_sharded(a, mdom, inv, mode)
+                                   for inv in (False, True)])
+        for inv, out in zip((False, True), got):
+            check(torch.equal(out, ntt_fast(a, dom, inv)), f"ntt_sharded "
+                  f"({mode}, inverse {inv}) differs from ntt_fast")
+        ms[f"sharded_{mode}"] = cuda_time_ms(
+            lambda: ntt_sharded(a, mdom, False, mode), 5)
+    print(f"  ntt_sharded 2^{LOG_N} over {MESH} shards == ntt_fast, forward "
+          f"and inverse, both modes; ms {json.dumps(ms)}", flush=True)
+
+
+def distributed_child():
+    """Phase 6e's child process: `runtime.configure` forms a one-rank NCCL
+    group (gloo under ULTRAGROTH_PLATFORM=cpu, for a rehearsal) from
+    ULTRAGROTH_COORDINATOR; a 2^10 Groth16 prove over its
+    ('host', 'chip') mesh against the single-device prove, verified.  The
+    key and witness come from the files the parent names."""
+    from ultragroth_tpu_torch.runtime import configure, default_device
+    configure()
+    import torch.distributed as dist
+    from ultragroth_tpu_torch.io.fieldenc import array_to_ints
+    from ultragroth_tpu_torch.io.zkey import parse_groth16_zkey
+    from ultragroth_tpu_torch.ops import kernels as K
+    from ultragroth_tpu_torch.parallel.mesh import (DATA_AXES,
+                                                    make_host_chip_mesh)
+    from ultragroth_tpu_torch.protocol import groth16 as g16
+    from ultragroth_tpu_torch.protocol.prover import TorchGroth16Prover
+    dev = default_device()
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.is_initialized() and dist.get_backend() == backend
+          and dist.get_world_size() == 1, f"no one-rank {backend} group")
+    mesh = make_host_chip_mesh(1)
+    check(mesh.group is not None and mesh.shape == {"host": 1, "chip": 1},
+          f"mesh {mesh}")
+    d = os.environ["UG_SMOKE_DIR"]
+    zk = parse_groth16_zkey(np.fromfile(os.path.join(d, "c.zkey"), np.uint8))
+    w = np.load(os.path.join(d, "w.npy"))
+    with open(os.path.join(d, "vk.json")) as fh:
+        vk = g16.VerificationKey.from_json_dict(json.load(fh))
+    K.reset_launch_counts()
+    proof = TorchGroth16Prover(zk, dev, mesh=mesh, axis=DATA_AXES).prove(
+        w, r=R_BLIND, s=S_BLIND)
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    single = TorchGroth16Prover(zk, dev).prove(w, r=R_BLIND, s=S_BLIND)
+    check(proof.to_json() == single.to_json(),
+          "the NCCL mesh proof differs from the single-device proof")
+    check(g16.verify(proof, array_to_ints(w[1:zk.n_public + 1]), vk),
+          "the NCCL mesh proof does not verify")
+    dist.destroy_process_group()
+    print(json.dumps({"distributed": "ok", "launches": launches}),
+          flush=True)
+
+
+def distributed_check(setup, w_small):
+    """Phase 6e: `distributed_child` in a subprocess with
+    ULTRAGROTH_COORDINATOR at a free localhost port, one process."""
+    import socket
+    tmp = tempfile.mkdtemp(prefix="ultragroth_dist_")
+    try:
+        with open(os.path.join(tmp, "c.zkey"), "wb") as fh:
+            fh.write(setup.zkey_bytes)
+        with open(os.path.join(tmp, "vk.json"), "w") as fh:
+            json.dump(setup.vk_json, fh)
+        np.save(os.path.join(tmp, "w.npy"), w_small)
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        env = dict(os.environ, ULTRAGROTH_COORDINATOR=f"127.0.0.1:{port}",
+                   ULTRAGROTH_NUM_PROCESSES="1", ULTRAGROTH_PROCESS_ID="0",
+                   UG_SMOKE_DIR=tmp)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.distributed_child()"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            capture_output=True, text=True, timeout=600)
+        tail = res.stdout.strip().splitlines()[-1:] or [""]
+        print(f"  child exit {res.returncode} in "
+              f"{time.perf_counter() - t0:.2f} s: {tail[0]}", flush=True)
+        check(res.returncode == 0 and tail[0].startswith('{"distributed"'),
+              f"distributed child failed: {res.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def capi_prove(drive, setup, wtns_bytes):
+    """Phase 6f: the port's C ABI shim built by g++ (with the remote
+    client) and loaded by ctypes into this process; a 2^10 key created,
+    proved and destroyed through it on the card (path `capi_2^10`), the
+    proof checked by the verifier ABI."""
+    import ctypes
+    from ultragroth_tpu_torch import capi
+    ull = ctypes.c_ulonglong
+    t0 = time.perf_counter()
+    libs = capi.build_libraries()
+    print(f"  shim and remote client built in {time.perf_counter() - t0:.2f}"
+          f" s: {libs['capi'].parent.name}", flush=True)
+    lib = ctypes.CDLL(str(libs["capi"]))
+    zkey = setup.zkey_bytes
+
+    def run():
+        obj = ctypes.c_void_p()
+        err = ctypes.create_string_buffer(512)
+        rc = lib.groth16_prover_create(ctypes.byref(obj), zkey,
+                                       ull(len(zkey)), err, ull(512))
+        check(rc == 0, f"groth16_prover_create: {rc} {err.value}")
+        proof = ctypes.create_string_buffer(8192)
+        public = ctypes.create_string_buffer(8192)
+        psz, usz = ull(8192), ull(8192)
+        rc = lib.groth16_prover_prove(obj, wtns_bytes, ull(len(wtns_bytes)),
+                                      proof, ctypes.byref(psz), public,
+                                      ctypes.byref(usz), err, ull(512))
+        check(rc == 0, f"groth16_prover_prove: {rc} {err.value}")
+        lib.groth16_prover_destroy(obj)
+        return proof.value, public.value
+
+    t0 = time.perf_counter()
+    proof, public = drive("capi_2^10", run)
+    err = ctypes.create_string_buffer(512)
+    vk = json.dumps(setup.vk_json).encode()
+    rc = lib.groth16_verify(proof, public, vk, err, ctypes.c_ulong(512))
+    check(rc == 0, f"groth16_verify of the C ABI proof: {rc} {err.value}")
+    print(f"  create / prove / destroy through the shim in "
+          f"{time.perf_counter() - t0:.2f} s; groth16_verify: valid",
+          flush=True)
+
+
+def native_check(setup):
+    """Phase 6g: the native host runtime built by g++: its Keccak against
+    the Python one, its repack of 2^20 words against the transpose, its
+    section scan against the Python parser's."""
+    from ultragroth_tpu_torch import keccak, native
+    from ultragroth_tpu_torch.io.binfile import BinFile
+    check(native.available(), "the native runtime did not build")
+    rng = np.random.default_rng(SEED)
+    for n in (0, 64, 135, 136, 137, 1000):
+        data = rng.bytes(n)
+        check(native.keccak256(data) == keccak.keccak256_py(data),
+              f"native Keccak differs at {n} bytes")
+    words = rng.integers(0, 1 << 32, size=(1 << LOG_N, 8), dtype=np.uint32)
+    t0 = time.perf_counter()
+    planes = native.words_to_planes(words)
+    t_native = time.perf_counter() - t0
+    check(np.array_equal(planes, words.T), "native words_to_planes differs")
+    zk = np.frombuffer(setup.zkey_bytes, np.uint8)
+    bf = BinFile.parse(zk)
+    version, sections = native.binfile_scan(zk)
+    want = sorted((t, v.ctypes.data - zk.ctypes.data, v.size)
+                  for t, views in bf.sections.items() for v in views)
+    check(version == bf.version and sorted(sections) == want,
+          "native binfile_scan differs from BinFile.parse")
+    print(f"  native Keccak == Python (6 lengths), words_to_planes 2^{LOG_N}"
+          f" rows {t_native * 1e3:.1f} ms (host) == transpose, binfile_scan"
+          f" == BinFile.parse ({len(sections)} sections)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1640,7 +1895,15 @@ def main() -> int:
     with phase("4b_fixed_base_prove"):
         msm_split.update(fixed_base_prove(dev, drive, zk, witness, expect,
                                           proof_pinned, specs))
+        torch.cuda.empty_cache()
+
+    with phase("4c_mesh_prove"):
+        mesh_prove(dev, drive, zk, witness, expect, proof_pinned)
         del zk, witness
+        torch.cuda.empty_cache()
+
+    with phase("4d_sharded_ntt"):
+        sharded_ntt_check(dev, drive)
         torch.cuda.empty_cache()
 
     with phase("5_ultragroth_small"):
@@ -1664,16 +1927,31 @@ def main() -> int:
     with phase("6d_cli"):
         cli_check()
 
+    with phase("6e_distributed"):
+        distributed_check(setup, w_small)
+
+    with phase("6f_capi"):
+        from ultragroth_tpu_torch import constants as C
+        from ultragroth_tpu_torch.constants import FR_MODULUS as R
+        from ultragroth_tpu_torch.io.binfile import pack_binfile
+        sec1 = ((32).to_bytes(4, "little") + R.to_bytes(32, "little")
+                + r1cs.n_vars.to_bytes(4, "little"))
+        capi_prove(drive, setup, pack_binfile(
+            C.WTNS_MAGIC, 2, [(1, sec1), (2, w_small.tobytes())]))
+
+    with phase("6g_native"):
+        native_check(setup)
+
     with phase("7_kernel_launches"):
         total = {k: sum(p[k] for p in paths.values()) for k in K.KERNELS}
-        # curve_add_where: held against its plain version in phase 2, and
-        # launched on no driven path (the fixed-base MSM folds no windows)
-        unused = ("g1_add_where", "g2_add_where")
+        # curve_add_where: launched by the mesh path's cross-shard folds
+        # only (log2(MESH) a MSM); no single-device path folds anything
+        folds = ("g1_add_where", "g2_add_where")
         var_only = ("g1_window_combine", "g2_window_combine")
         ladders = ("g1_fixed_base_mul", "g2_fixed_base_mul")
         tables = ("g1_window_table", "g2_window_table")
         prove_kernels = [k for k in K.KERNELS if k not in (
-            "fr_butterfly", *ladders, *tables, *unused)]
+            "fr_butterfly", *ladders, *tables, *folds)]
         need = {"groth16_2^20": prove_kernels,
                 "groth16_2^20_base": ["fr_butterfly"],
                 "fixed_tables_2^20": list(tables),
@@ -1681,14 +1959,25 @@ def main() -> int:
                                        if k not in var_only],
                 "ultragroth_setup_2^20": ["fr_mont_mul", *ladders],
                 "ultragroth_2^20": prove_kernels,
-                "ultragroth_2^20_api_mma": prove_kernels}
+                "ultragroth_2^20_api_mma": prove_kernels,
+                "groth16_2^20_mesh": [*prove_kernels, *folds],
+                "ntt_sharded_2^20": ["fr_cg_ntt", "fr_mont_mul"],
+                "ntt_sharded_2^20_base": ["fr_butterfly", "fr_mont_mul"],
+                "capi_2^10": prove_kernels}
         for name, kernels in need.items():
             missing = [k for k in kernels if paths[name][k] == 0]
             check(not missing, f"kernels never launched on {name}: {missing}")
-        adds = {p: c[k] for p, c in paths.items() for k in unused if c[k]}
-        check(not adds, f"curve_add_where launched on a driven path: {adds}")
-        print(f"  no add_where launch on any of the {len(paths)} driven "
-              "paths", flush=True)
+        adds = {p: c[k] for p, c in paths.items() for k in folds
+                if c[k] and p not in PATH_SHARDS}
+        check(not adds, f"curve_add_where launched on a single-device path: "
+              f"{adds}")
+        levels = MESH.bit_length() - 1
+        got = tuple(paths["groth16_2^20_mesh"][k] for k in folds)
+        check(got == (4 * levels, levels), f"groth16_2^20_mesh: (G1, G2) "
+              f"add_where launches {got}, not {levels} a MSM")
+        print(f"  add_where: (G1, G2) {got} on groth16_2^20_mesh ({levels} "
+              f"fold level(s) a MSM), none on the other {len(paths) - 1} "
+              "driven paths", flush=True)
         check(not any("horner" in k or "madd_valid" in k for k in K.KERNELS),
               "a Horner or per-step fixed-base kernel is still registered")
         # the per-key chains: one ladder launch a set-up run, one window
@@ -1719,8 +2008,9 @@ def main() -> int:
             check(drains == msms, f"{name}: (G1, G2) bucket drain launches "
                   f"{drains}, not one per MSM {msms}")
             # the reduction and the combine: the design's launches for the
-            # path's MSMs
-            want = expected_launches(PATH_WINDOWS[name])
+            # path's MSMs, on each shard
+            want = {k: v * PATH_SHARDS.get(name, 1) for k, v in
+                    expected_launches(PATH_WINDOWS[name]).items()}
             got = {k: paths[name][k] for k in want}
             check(got == want, f"{name}: reduction launches {got}, the design "
                   f"gives {want}")
@@ -1737,9 +2027,11 @@ def main() -> int:
               f"the fast quotient launched {q_fast['fr_mont_mul']} "
               f"fr_mont_mul, the base one {q_base['fr_mont_mul']}")
         for name in ("groth16_2^20", "groth16_2^20_fixed", "ultragroth_2^20",
-                     "ultragroth_2^20_steady", "ultragroth_2^20_api_mma"):
-            check(paths[name]["fr_cg_ntt"] == 12, f"{name}: "
-                  f"{paths[name]['fr_cg_ntt']} fr_cg_ntt launches, not 12")
+                     "ultragroth_2^20_steady", "ultragroth_2^20_api_mma",
+                     "groth16_2^20_mesh"):
+            want = 12 * PATH_SHARDS.get(name, 1)    # 2^10 rows and columns
+            check(paths[name]["fr_cg_ntt"] == want, f"{name}: "
+                  f"{paths[name]['fr_cg_ntt']} fr_cg_ntt launches, not {want}")
         print(f"  quotient 2^20: fast {q_fast['fr_cg_ntt']} fr_cg_ntt + "
               f"{q_fast['fr_mont_mul']} fr_mont_mul, base "
               f"{q_base['fr_butterfly']} fr_butterfly + {q_base['fr_mont_mul']}"
@@ -1751,7 +2043,7 @@ def main() -> int:
         check(sum(api_mma.values()) == sum(
             paths["ultragroth_2^20_api_mma"].values()),
             "the mma path launched kernels of the cios build")
-        missing = [k for k, v in total.items() if v == 0 and k not in unused]
+        missing = [k for k, v in total.items() if v == 0]
         check(not missing, f"kernels never launched: {missing}")
         rows = []
         for name, (source, replaces) in K.KERNELS.items():
@@ -1775,6 +2067,9 @@ def main() -> int:
                 fx = f"{name}:fixed"
                 row["fixed_base"] = {**metrics[fx],
                                      "mma_ms": metrics_mma[fx]["ms"]}
+            if name in MESH_FOLD:
+                # the same kernel at the shape of the mesh path's folds
+                row["mesh_fold"] = MESH_FOLD[name]
             if name.endswith(("_bucket_reduce", "_window_combine")):
                 row["mma_latency_floor_ms"] = (
                     metrics_mma[name]["product_depth"]

@@ -304,12 +304,21 @@ def test_runtime_platform_and_refusals(monkeypatch, tmp_path):
     assert runtime.compile_cache_dir() == tmp_path
     monkeypatch.delenv("ULTRAGROTH_COMPILE_CACHE")
     assert runtime.compile_cache_dir() == runtime.DEFAULT_CACHE
+    # ULTRAGROTH_COORDINATOR: configure() forms the multi-process runtime
+    # (parallel.mesh.distributed_init; a real two-process run is
+    # tests/test_torch_distributed.py)
+    from ultragroth_tpu_torch.parallel import mesh as pmesh
+    calls = []
+    monkeypatch.setattr(pmesh, "distributed_init",
+                        lambda: calls.append(os.environ.get(
+                            "ULTRAGROTH_COORDINATOR")) or True)
     monkeypatch.setattr(runtime, "_CONFIGURED", False)
     monkeypatch.setenv("ULTRAGROTH_COORDINATOR", "localhost:1234")
-    with pytest.raises(RuntimeError, match="multi-device"):
-        runtime.configure()
+    runtime.configure()
+    assert calls == ["localhost:1234"]
     monkeypatch.delenv("ULTRAGROTH_COORDINATOR")
     runtime.configure()
+    assert len(calls) == 1               # once a process
 
 
 def test_compile_cache_off_builds_in_a_removed_temporary_directory(tmp_path):

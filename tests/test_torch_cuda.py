@@ -406,3 +406,39 @@ def test_server_cancel_on_card(dev, tmp_path):
         assert st["status"] == "aborted" and fp.proof is None, st
     finally:
         httpd.shutdown()
+
+
+def test_mesh_prove_on_card_matches_cpu(dev):
+    """The small prove over Mesh([cuda:0, cuda:0]) (two shards on one
+    card): the CPU proof for the same r, s; each MSM's partials folded by
+    one `curve_add_where` launch."""
+    from ultragroth_tpu_torch.parallel import Mesh
+    r1cs, w = square_chain_circuit(60, seed=3)
+    setup = groth16_setup(r1cs, seed=9)
+    zk = parse_groth16_zkey(np.frombuffer(setup.zkey_bytes, np.uint8))
+    prover = TorchGroth16Prover(zk, mesh=Mesh([dev, dev]))
+    K.reset_launch_counts()
+    proof = prover.prove(w, r=11, s=22)
+    got = K.launch_counts()
+    assert (got["g1_add_where"], got["g2_add_where"]) == (4, 1)
+    assert (got["g1_bucket_drain"], got["g2_bucket_drain"]) == (8, 2)
+    on_cpu = TorchGroth16Prover(zk, device="cpu").prove(w, r=11, s=22)
+    assert proof.to_json() == on_cpu.to_json()
+
+
+@pytest.mark.parametrize("mode", ["fast", "base"])
+def test_sharded_ntt_on_card_matches_cpu(dev, mode):
+    from ultragroth_tpu_torch.ops.field import fr
+    from ultragroth_tpu_torch.ops.ntt import ntt
+    from ultragroth_tpu_torch.parallel import Mesh
+    from ultragroth_tpu_torch.parallel.ntt import MeshDomain, ntt_sharded
+    log_n = 12
+    rng = random.Random(71)
+    a = fr().to_mont(lb.ints_to_planes([rng.randrange(R)
+                                        for _ in range(1 << log_n)]))
+    want = ntt(a, Domain(log_n, "cpu"))
+    dom = MeshDomain(log_n, Mesh([dev, dev]))
+    got = ntt_sharded(_cu(a, dev), dom, mode=mode)
+    assert torch.equal(lb.widen(got).cpu(), want)
+    back = ntt_sharded(got, dom, inverse=True, mode=mode)
+    assert torch.equal(lb.widen(back).cpu(), a)

@@ -137,7 +137,8 @@ def test_limbs_and_convert_roundtrip(p):
 
 def test_port_imports_without_jax():
     """The port (and chip_smoke.py's and the tools' imports) load with jax
-    and ultragroth_tpu made unimportable."""
+    and ultragroth_tpu made unimportable; the C ABI shim, the remote client
+    and the native runtime build without them."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -156,6 +157,11 @@ def test_port_imports_without_jax():
         "    curve_fixed_base_mul, curve_window_table)\n"
         "from ultragroth_tpu_torch import convert, keccak, trace\n"
         "from ultragroth_tpu_torch import api, cli, log, runtime, server\n"
+        "from ultragroth_tpu_torch import capi, native\n"
+        "from ultragroth_tpu_torch.parallel import Mesh, make_mesh\n"
+        "from ultragroth_tpu_torch.parallel import mesh, msm, ntt\n"
+        "capi.build_libraries()\n"
+        "assert native.available()\n"
         "from ultragroth_tpu_torch.testkit import setup, circuits, dsetup\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'tools')\n"

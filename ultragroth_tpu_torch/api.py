@@ -7,9 +7,11 @@ prime -> witness length).
 Backends: `torch` (the default: `TorchGroth16Prover` / `TorchUltraGrothProver`
 on the device `runtime.default_device()` picks, the card unless
 ULTRAGROTH_PLATFORM=cpu, or the `device=` argument) and `oracle` (the pure
-Python provers).  There is no `devices=` argument yet: the port has no
-multi-device layer.  The C ABI (`capi.py` and its native shim) is not
-ported yet either.
+Python provers).  `device=` picks the platform the `torch` backend proves
+on; `devices=` shards the prove over a 1-D mesh of that many of the
+platform's devices (`parallel.make_mesh`: a power of two, or "all"; None,
+the default, proves on one device).  The C ABI over these functions is
+`capi.py` and its native shim (`csrc/capi_shim.cpp`).
 """
 from __future__ import annotations
 
@@ -103,26 +105,41 @@ def _device(device):
     return default_device() if device is None else device
 
 
+def _make_mesh(devices, device):
+    """devices: None -> single-device; int/"all" -> 1-D data mesh of the
+    platform of `device`."""
+    if devices is None:
+        return None
+    from .parallel import make_mesh
+    return make_mesh(devices, device=device)
+
+
 class Groth16Prover:
     """Handle-style prover: parse and upload once, prove many (parity:
     groth16_prover_create / _prove / _destroy, src/prover.cpp:144-216).
     device: where the `torch` backend proves (default
-    `runtime.default_device()`)."""
+    `runtime.default_device()`); devices: shard the prove over that many
+    devices of its platform (`_make_mesh`)."""
 
-    def __init__(self, zkey_buffer, backend: str = "torch", device=None):
+    def __init__(self, zkey_buffer, backend: str = "torch", device=None,
+                 devices=None):
         _check_backend(backend)
         self.zk = parse_groth16_zkey(_as_u8(zkey_buffer))
         _check_prime(self.zk.r_prime)
         self.backend = backend
         if backend == "torch":
             from .protocol.prover import TorchGroth16Prover
-            self._prover = TorchGroth16Prover(self.zk, device=_device(device))
+            dev = _device(device)
+            self._prover = TorchGroth16Prover(
+                self.zk, device=dev, mesh=_make_mesh(devices, dev))
         else:
             self._prover = g16.OracleGroth16Prover(self.zk)
 
     @classmethod
-    def from_file(cls, path, backend: str = "torch", device=None):
-        return cls(open(path, "rb").read(), backend=backend, device=device)
+    def from_file(cls, path, backend: str = "torch", device=None,
+                  devices=None):
+        return cls(open(path, "rb").read(), backend=backend, device=device,
+                   devices=devices)
 
     def prove(self, wtns_buffer, r=None, s=None,
               abort_check=None) -> tuple[str, str]:
@@ -149,23 +166,28 @@ class Groth16Prover:
 
 
 class UltraGrothProver:
-    """Parity: ultra_groth_prover_create / _prove (src/prover.cpp:219-309)."""
+    """Parity: ultra_groth_prover_create / _prove (src/prover.cpp:219-309).
+    device, devices as for `Groth16Prover`."""
 
-    def __init__(self, zkey_buffer, backend: str = "torch", device=None):
+    def __init__(self, zkey_buffer, backend: str = "torch", device=None,
+                 devices=None):
         _check_backend(backend)
         self.zk = parse_ultragroth_zkey(_as_u8(zkey_buffer))
         _check_prime(self.zk.r_prime)
         self.backend = backend
         if backend == "torch":
             from .protocol.prover import TorchUltraGrothProver
-            self._prover = TorchUltraGrothProver(self.zk,
-                                                 device=_device(device))
+            dev = _device(device)
+            self._prover = TorchUltraGrothProver(
+                self.zk, device=dev, mesh=_make_mesh(devices, dev))
         else:
             self._prover = ug.OracleUltraGrothProver(self.zk)
 
     @classmethod
-    def from_file(cls, path, backend: str = "torch", device=None):
-        return cls(open(path, "rb").read(), backend=backend, device=device)
+    def from_file(cls, path, backend: str = "torch", device=None,
+                  devices=None):
+        return cls(open(path, "rb").read(), backend=backend, device=device,
+                   devices=devices)
 
     def prove(self, uwtns_buffer, r0=None, r=None, s=None,
               abort_check=None) -> tuple[str, str]:
@@ -195,15 +217,15 @@ class UltraGrothProver:
 # -- one-shot provers (src/prover.cpp:682-767) ------------------------------
 
 def groth16_prover(zkey_buffer, wtns_buffer, backend="torch",
-                   device=None) -> tuple[str, str]:
-    return Groth16Prover(zkey_buffer, backend=backend,
-                         device=device).prove(wtns_buffer)
+                   device=None, devices=None) -> tuple[str, str]:
+    return Groth16Prover(zkey_buffer, backend=backend, device=device,
+                         devices=devices).prove(wtns_buffer)
 
 
 def ultra_groth_prover(zkey_buffer, uwtns_buffer, backend="torch",
-                       device=None) -> tuple[str, str]:
-    return UltraGrothProver(zkey_buffer, backend=backend,
-                            device=device).prove(uwtns_buffer)
+                       device=None, devices=None) -> tuple[str, str]:
+    return UltraGrothProver(zkey_buffer, backend=backend, device=device,
+                            devices=devices).prove(uwtns_buffer)
 
 
 # -- verifiers (src/verifier.cpp:149-237) -----------------------------------

@@ -10,8 +10,9 @@ package's `cli.py`, with the same commands, arguments and exit codes.
     python -m ultragroth_tpu_torch.cli prove c.zkey w.wtns proof.json pub.json
 
 `--backend torch` (the default) proves on the device ULTRAGROTH_PLATFORM
-picks (cuda unless set to cpu); `--backend oracle` in pure Python.  There
-is no `--devices` yet: the port has no multi-device layer.
+picks (cuda unless set to cpu); `--backend oracle` in pure Python.
+`--devices N` (or `all`) shards the prove over N devices of that platform;
+the default, or 1, proves on one.
 """
 from __future__ import annotations
 
@@ -22,8 +23,10 @@ import sys
 def _cmd_prove(args, ultra: bool):
     from . import api
     cls = api.UltraGrothProver if ultra else api.Groth16Prover
+    devices = None if args.devices in (None, "1") else args.devices
     try:
-        prover = cls.from_file(args.zkey, backend=args.backend)
+        prover = cls.from_file(args.zkey, backend=args.backend,
+                               devices=devices)
         proof_json, public_json = prover.prove(open(args.wtns, "rb").read())
     except api.ProverError as e:
         print(f"Error: {e}", file=sys.stderr)
@@ -105,6 +108,9 @@ def main(argv=None) -> int:
         p.add_argument("public")
         p.add_argument("--backend", default="torch",
                        choices=["torch", "oracle"])
+        p.add_argument("--devices", default=None,
+                       help="shard the prove over N devices ('all' = every "
+                            "visible device); default single-device")
         p.set_defaults(fn=lambda a, u=ultra: _cmd_prove(a, u))
 
     for name, ultra in (("verify", False), ("verify-ultra", True)):

@@ -2,9 +2,10 @@
 
 Parity: FIPS202_KECCAK_256 in src/keccak256.cpp:8 calls
 Keccak(rate=1088, cap=512, suffix=0x01, out=32) — the pre-FIPS Keccak used by
-Ethereum.  Pure-python implementation of the public Keccak-f[1600] spec
-(the JAX package's `keccak.py` without its native fast path: the prover
-hashes 64 bytes once per proof).
+Ethereum.  The native runtime's Keccak (`native.keccak256`) when its
+library can be built, as in the JAX package's `keccak.py`; else this
+pure-python implementation of the public Keccak-f[1600] spec, which the
+tests hold the native one against.
 """
 from __future__ import annotations
 
@@ -55,6 +56,14 @@ def _keccak_f(state):
 
 
 def keccak256(data: bytes) -> bytes:
+    from . import native
+    out = native.keccak256(data)
+    if out is not None:
+        return out
+    return keccak256_py(data)
+
+
+def keccak256_py(data: bytes) -> bytes:
     rate = 136  # 1088 bits
     state = [[0] * 5 for _ in range(5)]
 

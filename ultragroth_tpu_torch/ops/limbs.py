@@ -51,6 +51,12 @@ def ints_to_words(values) -> np.ndarray:
     return np.frombuffer(buf, dtype="<u4").reshape(-1, NLIMBS).copy()
 
 
+NATIVE_MIN_ROWS = 1 << 14
+"""From this many rows a [N, 8] repack on the CPU takes the native
+runtime's threaded shuffle (`native.words_to_planes`), as in the JAX
+package's `ops/limbs.py`."""
+
+
 def words_to_tensor(words: np.ndarray, device="cpu") -> torch.Tensor:
     """Wire words [..., 8] u32 -> the same layout on `device`, in the
     device's limb dtype."""
@@ -67,7 +73,15 @@ def words_to_planes(words: np.ndarray, device="cpu") -> torch.Tensor:
     """Wire words [..., 8] u32 -> limb planes [8, ...] on `device`.
 
     Uploads the compact u32 form and moves the limb axis on the device
-    (the twin of the JAX package's `words_to_planes_device`)."""
+    (the twin of the JAX package's `words_to_planes_device`); on the CPU a
+    [N, 8] array of NATIVE_MIN_ROWS rows or more is repacked by the native
+    runtime where it is available."""
+    if (torch.device(device).type == "cpu" and words.ndim == 2
+            and words.shape[0] >= NATIVE_MIN_ROWS):
+        from .. import native
+        planes = native.words_to_planes(words)
+        if planes is not None:
+            return torch.from_numpy(planes.astype(np.int64))
     return words_to_tensor(words, device).movedim(-1, 0).contiguous()
 
 

@@ -23,7 +23,15 @@ CPU.  Two settings are read once, when a prover is built:
     build (`ops.kernels.field_mode`);
   * the fixed-base tables (`_build_fixed_tables`, ULTRAGROTH_FIXED_MSM_MB):
     an MSM whose point set has a table runs `msm_fixed` over it.
-No mesh in this port yet.
+
+With a mesh (`mesh=`, `axis=`; the twin of the JAX provers' arguments)
+the point tables are cut over the mesh's shards once, when the prover is
+built (`parallel.msm.shard_points`), every MSM runs sharded
+(`parallel.msm.msm_sharded`) and the quotient's six NTT passes run as
+4-step mesh NTTs (`parallel.ntt.quotient_scalars_sharded`); the
+fixed-base tables are off, as in the JAX package, whatever
+ULTRAGROTH_FIXED_MSM_MB says.  The proof bytes are the single-device
+prover's.
 """
 from __future__ import annotations
 
@@ -154,9 +162,10 @@ class _ResidentKey:
     tables, the R1CS coefficients, the NTT domain and the window sizes,
     and the optional fixed-base tables."""
 
-    def _load_common(self, zk, device, ntt_mode):
+    def _load_common(self, zk, device, ntt_mode, mesh, axis):
         self.zk = zk
         self.device = dev = torch.device(device)
+        self.mesh, self.axis = mesh, axis
         self.field_mode = mxufield.field_mode()
         self.log_n = zk.domain_size.bit_length() - 1
         if (1 << self.log_n) != zk.domain_size:
@@ -179,21 +188,48 @@ class _ResidentKey:
         self._r2 = F.const(F.r2, (1,), dev, lb.limb_dtype(dev))
         self.last_phase_ms: dict | None = None
 
-    def _load_fixed(self, **named_points):
+    def _load_tables(self, **point_sets):
+        """The NTT domain and the MSMs' tables; point_sets: name -> (group,
+        the attribute that holds its (table, inf)).  Without a mesh: the
+        fixed-base tables under ULTRAGROTH_FIXED_MSM_MB.  With one: each
+        set cut over the mesh's shards, in place of its attribute, and no
+        fixed-base table."""
+        self.fixed, self.fixed_seconds_by_set = {}, {}
+        if self.mesh is not None:
+            from ..parallel.msm import shard_points
+            from ..parallel.ntt import MeshDomain
+            self.domain = MeshDomain(self.log_n, self.mesh, self.axis,
+                                     self.device)
+            for group, attr in point_sets.values():
+                setattr(self, attr, shard_points(
+                    group, *getattr(self, attr), self.mesh, self.axis))
+            self.fixed_seconds = 0.0
+            return
+        self.domain = Domain(self.log_n, self.device)
         t0 = time.perf_counter()
         self.fixed, self.fixed_seconds_by_set = _build_fixed_tables(
-            **named_points)
+            **{k: (g, getattr(self, attr))
+               for k, (g, attr) in point_sets.items()})
         if self.device.type == "cuda":
             torch.cuda.synchronize()
         self.fixed_seconds = time.perf_counter() - t0
 
     def _msm(self, key: str, group: str, pts, scalars, c: int):
         """The MSM of one point set: over its fixed-base table where it has
-        one, else the variable-base Pippenger."""
+        one, sharded under a mesh, else the variable-base Pippenger."""
         if key in self.fixed:
             table, inf, cf = self.fixed[key]
             return _msm.msm_fixed(group, table, inf, scalars, cf)
+        if self.mesh is not None:
+            from ..parallel.msm import msm_sharded
+            return msm_sharded(pts, scalars, c)
         return _msm.msm(group, *pts, scalars, c)
+
+    def _quotient(self, a, b):
+        if self.mesh is not None:
+            from ..parallel.ntt import quotient_scalars_sharded
+            return quotient_scalars_sharded(a, b, self.domain, self.ntt_mode)
+        return quotient_scalars(a, b, self.domain, self.ntt_mode)
 
     def _final_round(self, t: Tracer, w_std, points_c, w_c, c_c, key_c):
         """A, B1, B2 over the whole witness, C over `w_c`, the scatter, the
@@ -214,8 +250,7 @@ class _ResidentKey:
                                  self.coef_c, self.coef_s, zk.domain_size)
 
         a, b = t.run("scatter", scatter)
-        h_std = t.run("quotient", lambda: quotient_scalars(
-            a, b, self.domain, self.ntt_mode))
+        h_std = t.run("quotient", lambda: self._quotient(a, b))
         pi_h = t.run("msm_h", lambda: self._msm("h", "g1", self.points_h,
                                                 h_std, self.c_h))
         return pi_a, pi_b1, pi_b2, pi_c, pi_h
@@ -227,19 +262,22 @@ class TorchGroth16Prover(_ResidentKey):
     device: "cuda" (the default) or "cpu" (the plain PyTorch versions of
     every kernel; what the CPU tests run).  ntt_mode: "fast", "base" or
     None, resolved by `ops.ntt.ntt_mode`.  The field mode and the
-    fixed-base tables are read from the environment here, once."""
+    fixed-base tables are read from the environment here, once.  mesh:
+    an optional `parallel.Mesh`; the MSMs and the quotient then run sharded
+    over `mesh[axis]` (a name or a tuple of names), the whole arrays on
+    `device`."""
 
-    def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
-        self._load_common(zkey, device, ntt_mode)
+    def __init__(self, zkey, device="cuda", ntt_mode: str | None = None,
+                 mesh=None, axis="data"):
+        self._load_common(zkey, device, ntt_mode, mesh, axis)
         self.points_c = g1_section_to_table(zkey.points_c, self.device)
         # blinding-term points for the host-side finalization
         self.delta1 = decode_g1(zkey.delta1)
         self.delta2 = decode_g2(zkey.delta2)
         with kernels.field_mode(self.field_mode):
-            self.domain = Domain(self.log_n, self.device)
-            self._load_fixed(a=("g1", self.points_a), b1=("g1", self.points_b1),
-                             b2=("g2", self.points_b2), c=("g1", self.points_c),
-                             h=("g1", self.points_h))
+            self._load_tables(a=("g1", "points_a"), b1=("g1", "points_b1"),
+                              b2=("g2", "points_b2"), c=("g1", "points_c"),
+                              h=("g1", "points_h"))
 
     @torch.inference_mode()
     def msm_outputs(self, witness_words: np.ndarray, tracer: Tracer):
@@ -278,11 +316,12 @@ class TorchUltraGrothProver(_ResidentKey):
 
     The heavy phases (six MSMs, the lookup inversion, the quotient NTTs)
     run on the device; the Keccak challenge and the O(1) blinding algebra
-    on the host.  device, ntt_mode, the field mode and the fixed-base
-    tables as for `TorchGroth16Prover`."""
+    on the host.  device, ntt_mode, mesh, axis, the field mode and the
+    fixed-base tables as for `TorchGroth16Prover`."""
 
-    def __init__(self, zkey, device="cuda", ntt_mode: str | None = None):
-        self._load_common(zkey, device, ntt_mode)
+    def __init__(self, zkey, device="cuda", ntt_mode: str | None = None,
+                 mesh=None, axis="data"):
+        self._load_common(zkey, device, ntt_mode, mesh, axis)
         zk, dev = zkey, self.device
         self.round_points_c = g1_section_to_table(zk.round_points_c, dev)
         self.final_points_c = g1_section_to_table(zk.final_points_c, dev)
@@ -294,12 +333,11 @@ class TorchUltraGrothProver(_ResidentKey):
         self.c_round = default_window(len(zk.round_indexes))
         self.c_final = default_window(len(zk.final_indexes))
         with kernels.field_mode(self.field_mode):
-            self.domain = Domain(self.log_n, dev)
-            self._load_fixed(a=("g1", self.points_a), b1=("g1", self.points_b1),
-                             b2=("g2", self.points_b2),
-                             rc=("g1", self.round_points_c),
-                             fc=("g1", self.final_points_c),
-                             h=("g1", self.points_h))
+            self._load_tables(a=("g1", "points_a"), b1=("g1", "points_b1"),
+                              b2=("g2", "points_b2"),
+                              rc=("g1", "round_points_c"),
+                              fc=("g1", "final_points_c"),
+                              h=("g1", "points_h"))
 
     def _lookup_scatter(self, w_std, lookup, rand: int):
         """compute_lookup on the device (parity: src/ultra_groth.cpp:61-106):

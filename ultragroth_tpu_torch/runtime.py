@@ -9,9 +9,11 @@ server): the twin of the JAX package's `runtime.py`.
   the JAX package's variable of the same name holds its XLA cache.  `off`
   means no persistent cache, as it does there: the libraries are built
   into a temporary directory of the process, removed when it exits.
-- ULTRAGROTH_COORDINATOR starts the JAX package's multi-host runtime.  The
-  port has no multi-device layer yet, so `configure()` raises when it is
-  set rather than prove on one card as if it were not.
+- ULTRAGROTH_COORDINATOR (with ULTRAGROTH_NUM_PROCESSES and
+  ULTRAGROTH_PROCESS_ID) forms the multi-process runtime: `configure()`
+  calls `parallel.mesh.distributed_init()`, which starts a
+  `torch.distributed` process group (NCCL on cuda, gloo on the CPU), as
+  the JAX package's `configure()` starts `jax.distributed`.
 
 The JAX package's `ensure_map_count` (a raise of vm.max_map_count for
 XLA:CPU's JIT) has no twin: the port compiles no XLA program, and its code
@@ -69,14 +71,13 @@ def _process_cache() -> Path:
 
 
 def configure() -> None:
-    """Once per process, before the first prover: refuse what the port
-    cannot do yet."""
+    """Once per process, before the first prover: check the platform and
+    form the multi-process runtime (a no-op unless ULTRAGROTH_COORDINATOR
+    is set)."""
     global _CONFIGURED
     if _CONFIGURED:
         return
-    if os.environ.get("ULTRAGROTH_COORDINATOR"):
-        raise RuntimeError(
-            "ULTRAGROTH_COORDINATOR is set, but the PyTorch port has no "
-            "multi-device layer yet: unset it to prove on one device")
     platform()
+    from .parallel.mesh import distributed_init
+    distributed_init()
     _CONFIGURED = True

@@ -16,7 +16,8 @@ Status machine: ready | busy | success | failed | aborted.
 A circuit's witness is POSTed as a .wtns / .uwtns (Content-Type
 application/octet-stream), or as circuit input JSON run through the
 witness generator command template `--witgen`.  Proves run on a worker
-thread, on the CUDA device that was current when the server was made.
+thread, on the CUDA device that was current when the server was made;
+`--devices N` shards each prove over N devices (`api`'s `devices=`).
 
     python -m ultragroth_tpu_torch.server --port 9080 circuit.zkey ...
 """
@@ -44,16 +45,17 @@ class FullProver:
     thread with a single pending slot (latest request wins)."""
 
     def __init__(self, zkey_paths, witgen: str | None = None,
-                 backend: str = "torch"):
+                 backend: str = "torch", devices=None):
         self.provers = {}
         for path in zkey_paths:
             path = pathlib.Path(path)
             name = path.stem.removesuffix(".zkey")
             try:
-                self.provers[name] = UltraGrothProver.from_file(path,
-                                                                backend)
+                self.provers[name] = UltraGrothProver.from_file(
+                    path, backend, devices=devices)
             except Exception:
-                self.provers[name] = Groth16Prover.from_file(path, backend)
+                self.provers[name] = Groth16Prover.from_file(
+                    path, backend, devices=devices)
             LOG.info("circuit loaded: %s (%s)", name,
                      type(self.provers[name]).__name__)
         self.witgen = witgen
@@ -222,8 +224,9 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 def serve(zkey_paths, port: int = 9080, witgen: str | None = None,
-          backend: str = "torch"):
-    fp = FullProver(zkey_paths, witgen=witgen, backend=backend)
+          backend: str = "torch", devices=None):
+    fp = FullProver(zkey_paths, witgen=witgen, backend=backend,
+                    devices=devices)
     handler = type("Handler", (_Handler,), {"full_prover": fp})
     httpd = ThreadingHTTPServer(("0.0.0.0", port), handler)
     return fp, httpd
@@ -240,8 +243,13 @@ def main(argv=None) -> int:
                     help="witness generator command template, e.g. "
                          "'./build/{circuit} {input} {output}'")
     ap.add_argument("--backend", default="torch", choices=["torch", "oracle"])
+    ap.add_argument("--devices", default=None,
+                    help="shard proves over N devices ('all' = every visible "
+                         "device); default single-device")
     args = ap.parse_args(argv)
-    _, httpd = serve(args.zkeys, args.port, args.witgen, args.backend)
+    devices = None if args.devices in (None, "1") else args.devices
+    _, httpd = serve(args.zkeys, args.port, args.witgen, args.backend,
+                     devices=devices)
     print(f"proof server listening on :{args.port}", file=sys.stderr)
     httpd.serve_forever()
     return 0
