@@ -1,0 +1,7 @@
+"""The `quotient` phase (three NTT round trips and the product), mean ms
+a prove."""
+from portbench.metrics import _phases as _ph
+
+
+def read(ctx):
+    return _ph.mean_of(ctx, lambda ph: ph.get("quotient"))
